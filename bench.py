@@ -1,16 +1,9 @@
-"""Benchmark: path-trace throughput on the Cornell box (BASELINE north star).
+"""Benchmark: 8-bounce path-trace throughput on the Cornell box.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
-vs_baseline is measured rays/s divided by the 1e9 rays/s/chip target
-(BASELINE.md). Runs on whatever jax.devices() provides (TPU under the
-driver; CPU works for smoke tests via JAX_PLATFORMS=cpu).
-
-Fast path: the PERSISTENT path-regeneration megakernel
-(accel/megakernel.py run_persistent) — one lane per pixel rendering
-`SPP_PER_PASS` complete 8-bounce paths back to back with in-kernel camera
-regeneration, so no trace slot is wasted on dead lanes. Falls back to the
-whole-path megakernel / XLA wavefront for scenes outside the kernel's
-feature subset.
+Prints ONE JSON line: {"metric", "value", "unit", "device"}, with the
+device as JAX reports it (platform, kind, count). Runs on whatever
+jax.devices() provides; on the CPU (JAX_PLATFORMS=cpu) it is a smoke test
+of the script, not a measurement of any accelerator.
 
 Ray accounting matches the reference's "Normal/Shadow rays traced" counters
 (ref: src/librender/skdtree.cpp:46-47): one count per live intersection ray
@@ -30,40 +23,18 @@ from mitsuba_tpu.integrator.common import DIM_PIXEL
 from mitsuba_tpu.integrator.path import PathTracer
 from mitsuba_tpu.scene.builder import compile_scene
 from mitsuba_tpu.scene.presets import cornell_box, cornell_camera
-
-BASELINE_RAYS_PER_S = 1e9
+from mitsuba_tpu.util.compile_cache import setup_compile_cache
 
 WIDTH = HEIGHT = 256
-SPP_PER_PASS = 2048       # paths per lane per timed pass
-N_TIMED_PASSES = 2
+SPP_PER_PASS = 16
+N_TIMED_PASSES = 4
 MAX_DEPTH = 8
 
 
-def _bench_persistent(scene, camera):
-    from mitsuba_tpu.integrator.mega import (MegaPathTracer,
-                                             render_persistent)
-    integ = MegaPathTracer.for_scene(scene, max_depth=MAX_DEPTH,
-                                     pblock=16384)
-    img, n_rays = render_persistent(integ, camera, spp=SPP_PER_PASS,
-                                    seed=0)
-    jax.block_until_ready(img)
-    rays_per_pass = int(n_rays)
-    t0 = time.perf_counter()
-    outs = []
-    for s in range(1, N_TIMED_PASSES + 1):
-        img, _ = render_persistent(integ, camera, spp=SPP_PER_PASS,
-                                   seed=s)
-        outs.append(img)
-    jax.block_until_ready(outs)
-    return rays_per_pass * N_TIMED_PASSES / (time.perf_counter() - t0)
-
-
 def _bench_wavefront(scene, camera):
-    integrator = PathTracer(max_depth=MAX_DEPTH,
-                            cluster_size=64).specialized_for(scene)
+    integrator = PathTracer(max_depth=MAX_DEPTH).specialized_for(scene)
     n_pix = WIDTH * HEIGHT
-    spp = 16
-    n = n_pix * spp
+    n = n_pix * SPP_PER_PASS
     px = jnp.arange(n, dtype=jnp.uint32) % jnp.uint32(n_pix)
     pix_x = (px % WIDTH).astype(jnp.float32)
     pix_y = (px // WIDTH).astype(jnp.float32)
@@ -71,7 +42,7 @@ def _bench_wavefront(scene, camera):
 
     @jax.jit
     def one_pass(scene, seed):
-        s = samp + seed * jnp.uint32(spp)
+        s = samp + seed * jnp.uint32(SPP_PER_PASS)
         jitter = rng.sample_2d(seed, px, DIM_PIXEL, s)
         pos = jnp.stack([pix_x + jitter[..., 0], pix_y + jitter[..., 1]],
                         axis=-1)
@@ -81,27 +52,26 @@ def _bench_wavefront(scene, camera):
 
     mean_r, n_rays = one_pass(scene, jnp.uint32(0))
     mean_r.block_until_ready()
-    rays_per_pass = int(n_rays)
     t0 = time.perf_counter()
-    outs = [one_pass(scene, jnp.uint32(s))[0]
-            for s in range(1, 5)]
+    outs = [one_pass(scene, jnp.uint32(s))
+            for s in range(1, N_TIMED_PASSES + 1)]
     jax.block_until_ready(outs)
-    return rays_per_pass * 4 / (time.perf_counter() - t0)
+    elapsed = time.perf_counter() - t0
+    return sum(int(r) for _, r in outs) / elapsed
 
 
 def main():
-    scene = compile_scene(cornell_box(), cluster_size=64)
+    setup_compile_cache()
+    scene = compile_scene(cornell_box())
     camera = cornell_camera(width=WIDTH, height=HEIGHT)
-    try:
-        rays_per_s = _bench_persistent(scene, camera)
-    except Exception:
-        rays_per_s = _bench_wavefront(scene, camera)
-
+    rays_per_s = _bench_wavefront(scene, camera)
+    dev = jax.devices()[0]
     print(json.dumps({
-        "metric": "cornell_pt8_rays_per_s_per_chip",
+        "metric": "cornell_pt8_rays_per_s",
         "value": rays_per_s,
         "unit": "rays/s",
-        "vs_baseline": rays_per_s / BASELINE_RAYS_PER_S,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

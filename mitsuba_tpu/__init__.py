@@ -1,8 +1,8 @@
-"""mitsuba_tpu — a TPU-native differentiable path-tracing framework.
+"""mitsuba_tpu — a differentiable wavefront path-tracing framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of Mitsuba 0.5
 (winmad research fork). Wavefront structure-of-arrays scene representation,
-MXU-friendly ray-scene intersection, `lax.scan` integrators, counter-based
+dense-math ray-scene intersection with a fused GPU trace kernel, `lax.scan` integrators, counter-based
 replayable RNG, and `jax.sharding` multi-chip distribution. See SURVEY.md for
 the component map and ARCHITECTURE.md for design rationale.
 """

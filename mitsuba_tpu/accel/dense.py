@@ -1,9 +1,9 @@
-"""MXU-native ray-triangle intersection: dense Woop-transform clusters.
+"""Dense ray-triangle intersection: dense Woop-transform clusters.
 
 Design (SURVEY.md §7): instead of porting the reference's pointer-chasing SAH
 kd-tree (ref: include/mitsuba/render/gkdtree.h:706, sahkdtree3.h:179 Havran
 traversal, triaccel.h:33 Wald projection tests), intersection is reformulated
-as dense linear algebra that the MXU executes at full tilt:
+as dense linear algebra:
 
   For each triangle precompute the inverse affine map M⁻¹ taking world space
   to the triangle's barycentric frame (columns [e1, e2, n] at p0 — Woop's
@@ -15,7 +15,7 @@ as dense linear algebra that the MXU executes at full tilt:
       hit ⇔ u ≥ 0 ∧ v ≥ 0 ∧ u+v ≤ 1 ∧ t ∈ (mint, maxt)
 
   Everything is a matmul + elementwise mask + min-reduction: the exact shape
-  of computation the MXU/VPU pipeline is built for. No divergence, no stacks,
+  of computation a wide vector machine is built for. No divergence, no stacks,
   no gather-per-node. Large scenes chunk the triangle axis with `lax.scan`
   (cluster streaming); a two-level variant with AABB cluster culling lives in
   accel/clusters.py.
@@ -153,8 +153,8 @@ def fill_intersection(scene: SceneData, o, d, t, u, v, tri_id, hit
                       ) -> Intersection:
     """Gather per-triangle attributes for the chosen hits — the analog of
     Shape::fillIntersectionRecord (ref: shape.h:307). All attributes come
-    from ONE row gather of the packed tri_attr table (six separate gathers
-    measured ~6× slower on TPU); shading normal/uv are barycentric-
+    from ONE row gather of the packed tri_attr table (one index pass instead of
+    six); shading normal/uv are barycentric-
     interpolated."""
     w = 1.0 - u - v
     bary = jnp.stack([w, u, v], axis=-1)               # [N, 3]

@@ -3,7 +3,7 @@
 Counterpart of the reference's `deformable` shape — a 4D (space+time)
 kd-tree whose leaves lerp vertex positions at the ray's time before the
 triangle test (ref: src/shapes/deformable.cpp, sahkdtree4.h). The
-TPU-native replacement keeps two keyframe vertex buffers resident and
+wavefront replacement keeps two keyframe vertex buffers resident and
 evaluates a Möller–Trumbore test against PER-RAY linearly-interpolated
 triangles: unlike the static path (accel/dense.py), the Woop inverse
 cannot be pre-baked because it is not linear in the vertex positions, so

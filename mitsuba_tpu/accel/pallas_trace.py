@@ -1,29 +1,30 @@
-"""Fused Pallas trace kernel: Woop-transform intersection fully on-chip.
+"""Fused trace kernel (Pallas through Triton): Woop-transform intersection
+with every intermediate in registers.
 
-The XLA dense intersector (accel/dense.py) materializes [N, 3T] transformed
-ray coordinates in HBM between the matmul and the triangle test — at
-wavefront sizes that's ~1 GB of traffic per trace call and caps throughput
-around 35 M rays/s. This kernel keeps everything in VMEM:
+The XLA intersector (accel/dense.py) writes the transformed ray
+coordinates op/dp, [N, 3·cluster_size] f32 each, to device memory for
+every cluster step. This kernel keeps them on chip:
 
-  grid = (ray_blocks, clusters); per step:
-    1. VPU broadcast-FMA Woop transform: [Tc,1] matrix columns × [1,B] ray
-       components → op/dp [Tc, B] (beats the MXU here: K=4 runs the
-       systolic array nearly empty and 6-pass f32 makes it slower)
-    2. VPU: t/u/v + validity mask on [Tc, B] tiles (rays on lanes,
-       triangles on sublanes)
-    3. sublane min + one-hot select of (t, u, v, tri) per ray
-    4. best-so-far accumulation across the cluster grid dimension in the
-       revisited output block.
+  grid = (ray blocks,); one program owns a power-of-two block of B rays
+  and loops over the triangle clusters itself. Per cluster:
+    1. slab test of the cluster's world AABB against the block; a
+       cluster no ray of the block can enter is skipped whole;
+    2. broadcast-FMA Woop transform of the [B, TC] ray × triangle tile,
+       t/u/v and the hit mask, all in registers;
+    3. row min over the TC triangles, first index achieving it, and a
+       best-so-far (t, tri) per ray carried in registers across clusters.
 
-Layouts: rays are component-major [4, N] (x,y,z,w on sublanes, rays on
-lanes) so the lane dimension is the wavefront — every elementwise op is a
-full-width VPU op. Triangle clusters are [C, 3T, 4] with the component-major
-packing W[c, k*T + t, j] (k ∈ {x', y', z'}), so op_x/op_y/op_z are
-contiguous sublane slices.
+The any-hit (shadow) variant stops walking clusters once every live ray
+of the block has found an occluder.
 
-This replaces the reference's SAH kd-tree traversal as the device hot path
-(ref: sahkdtree3.h:179 Havran traversal, triaccel.h:33) — same capability,
-shaped for a machine with matrix units instead of branch predictors.
+The kernel returns the hit triangle index only. t/u/v for that one
+triangle are recomputed in jnp from its Woop rows (`hit_from_woop`), so
+AD through a trace gives exactly what it gives through dense.py and no
+custom VJP is needed; the kernel's inputs are detached.
+
+This replaces the reference's SAH kd-tree traversal as the device hot
+path (ref: sahkdtree3.h:179 Havran traversal, triaccel.h:33): one level of
+spatially compact (Morton-ordered) triangle clusters with AABB culling.
 """
 from __future__ import annotations
 
@@ -33,47 +34,24 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..scene.scene import Intersection, SceneData
-from .dense import fill_intersection
+from .dense import _DZ_EPS, fill_intersection
 
-DEF_BLOCK = 4096        # rays per block (lanes)
-PALLAS_TC = 64          # triangles per cluster (sublane tile rows)
-_DZ_EPS = 1e-12
-_MISS = 1e30
-
-
-def build_woop_clustered(woop_o: np.ndarray, tris_per_cluster: int):
-    """Repack the [4, 3T] interleaved Woop matrix (dense.build_woop layout:
-    column 3t+k) into [C, 3Tc, 4] cluster-major component-major blocks for
-    the kernel. Returns a float32 array.
-    """
-    four, t3 = woop_o.shape
-    n_tris = t3 // 3
-    tc = tris_per_cluster
-    c = -(-n_tris // tc)
-    pad = c * tc - n_tris
-    w = woop_o.reshape(4, n_tris, 3)          # [4, t, k]
-    if pad:
-        # degenerate padding: zero matrix, trans z = 1 → d'_z = 0 ⇒ miss
-        padw = np.zeros((4, pad, 3), woop_o.dtype)
-        padw[3, :, 2] = 1.0
-        w = np.concatenate([w, padw], axis=1)
-    w = w.reshape(4, c, tc, 3)
-    # target: out[c, k*tc + t, j]
-    out = np.transpose(w, (1, 3, 2, 0)).reshape(c, 3 * tc, 4)
-    return np.ascontiguousarray(out, np.float32)
+TRACE_TC = 32           # triangles per cluster step (tile columns)
+TRACE_BLOCK = 128       # rays per program (tile rows)
+TRACE_WARPS = 4
+_MISS = 3.0e38
 
 
 def build_cluster_aabbs(p0, e1, e2, tc: int, c_clusters: int
                         ) -> np.ndarray:
     """World AABB per tc-sized trace cluster → [C, 8] f32 (min xyz,
-    max xyz, 2 pad columns for the (8,·) tile). Empty clusters (all
-    padding) get an inverted box, so the slab test rejects every ray.
-    The cluster partition matches build_woop_clustered (consecutive
-    triangle ranges) — this is the top level of the two-level layout
-    that replaces the reference's kd-tree interior nodes."""
+    max xyz, 2 pad columns). Empty clusters (all padding) get an inverted
+    box, so the slab test rejects every ray. Clusters are consecutive
+    triangle ranges — with the builder's Morton order they are spatially
+    compact, the LBVH-style leaf level that replaces the kd-tree."""
     n = len(p0)
     out = np.empty((c_clusters, 8), np.float32)
     out[:, 0:3] = 1e30
@@ -92,519 +70,210 @@ def build_cluster_aabbs(p0, e1, e2, tc: int, c_clusters: int
     return out
 
 
-ORDER_MAX_CLUSTERS = 128    # [C, C] order tables live in SMEM; past this
-                            # the scene keeps the plain Morton-order loop
+def build_trace_tables(woop_o: np.ndarray, p0, e1, e2, n_real: int,
+                       tc: int = TRACE_TC):
+    """Kernel layout of the first `n_real` triangles.
+
+    Returns (woop [12, C·tc] f32: row 4k+j holds Woop matrix entry (k, j)
+    of every triangle, k ∈ {x', y', z'}, j ∈ {x, y, z, translation};
+    boxes [8, C] f32: the transposed build_cluster_aabbs table). Padding
+    triangles get a zero matrix with translation z' = 1, so d'_z = 0 and
+    they never hit. Triangle ids are those of the scene arrays."""
+    n_tris = woop_o.shape[1] // 3
+    n_real = min(n_real, n_tris)
+    c = max(1, -(-n_real // tc))
+    w = np.zeros((4, c * tc, 3), np.float32)
+    w[3, :, 2] = 1.0
+    w[:, :n_real] = woop_o.reshape(4, n_tris, 3)[:, :n_real]
+    woop = np.ascontiguousarray(w.transpose(2, 0, 1).reshape(12, c * tc))
+    boxes = build_cluster_aabbs(p0[:n_real], e1[:n_real], e2[:n_real],
+                                tc, c)
+    return woop, np.ascontiguousarray(boxes.T)
 
 
-def build_cluster_order(aabb: np.ndarray):
-    """Front-to-back traversal tables from the cluster AABBs.
-
-    Returns (meta [C, 8] f32: center xyz, half-diagonal r, global r_max;
-    order [C, C] i32: clusters sorted by center distance from cluster k;
-    odist [C, C] f32: those distances). Replaces the BVH's ordered
-    descent at BLOCK granularity: with coherence-sorted rays, a ray
-    block visits clusters near-to-far from its origin box and stops as
-    soon as no remaining cluster can beat the block's worst hit —
-    the kd-tree early-termination capability (ref: sahkdtree3.h:179
-    Havran traversal) re-expressed for 2048-wide ray blocks."""
-    lo = aabb[:, 0:3].astype(np.float64)
-    hi = aabb[:, 3:6].astype(np.float64)
-    empty = (lo > hi).any(-1)
-    center = np.where(empty[:, None], 1e30, (lo + hi) * 0.5)
-    r = np.where(empty, 0.0,
-                 0.5 * np.linalg.norm(np.maximum(hi - lo, 0), axis=-1))
-    d = np.linalg.norm(center[:, None, :] - center[None, :, :], axis=-1)
-    order = np.argsort(d, axis=1).astype(np.int32)
-    odist = np.take_along_axis(d, order, axis=1).astype(np.float32)
-    meta = np.zeros((len(center), 8), np.float32)
-    meta[:, 0:3] = center
-    meta[:, 3] = r
-    meta[:, 4] = r[~empty].max() if (~empty).any() else 0.0
-    # global scene AABB in rows 0/1, cols 5:8 (the early-exit cap for
-    # escaping rays: a ray can't hit anything past its exit from this
-    # box, so misses stop pinning the block's hit cap at infinity)
-    if (~empty).any():
-        meta[0, 5:8] = lo[~empty].min(0)
-        meta[1, 5:8] = hi[~empty].max(0)
-    return meta, order, odist
+def _safe_inv(x):
+    return jnp.where(jnp.abs(x) < 1e-12,
+                     jnp.where(x >= 0.0, 1e30, -1e30), 1.0 / x)
 
 
-def _trace_kernel_fused(live_ref, woop_ref, aabb_ref, meta_ref, order_ref,
-                        odist_ref, hint_ref, lane_live_ref, rays_o_ref,
-                        rays_d_ref, mint_ref, maxt_ref, t_ref, idx_ref,
-                        u_ref, v_ref, *, tc: int, c_clusters: int,
-                        any_hit: bool, ordered: bool):
-    """All clusters in ONE kernel invocation: the whole [C, 3Tc, 4] Woop
-    table is VMEM-resident and a fori_loop walks it, with VMEM
-    accumulators (the same structure as the megakernel's cluster loop,
-    megakernel._trace_inline).
+def _trace_kernel(rays_ref, woop_ref, box_ref, tri_ref, *, tc: int,
+                  n_clusters: int, any_hit: bool):
+    """One program: B rays against every cluster. rays_ref rows: o xyz,
+    d xyz, mint, maxt; a lane with maxt <= mint is dead (reports miss)."""
+    ox, oy, oz = rays_ref[0, :], rays_ref[1, :], rays_ref[2, :]
+    dx, dy, dz = rays_ref[3, :], rays_ref[4, :], rays_ref[5, :]
+    mint, maxt = rays_ref[6, :], rays_ref[7, :]
+    b = ox.shape[0]
+    live = maxt > mint
+    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (b, tc), 1)
+    col = lambda x: x[:, None]
 
-    live_ref (SMEM, [r_blocks] int32): per-ray-block liveness flags —
-    blocks with no live lane skip the whole cluster loop (`pl.when`).
-    With the integrator's per-bounce compaction (path.py) dead lanes
-    pack into a suffix of all-dead blocks, so deep-bounce wavefronts do
-    not pay full-scene trace cost for terminated paths — the XLA-side
-    answer to the persistent megakernel's path regeneration."""
-    ox, oy, oz = (rays_o_ref[0:1, :], rays_o_ref[1:2, :],
-                  rays_o_ref[2:3, :])           # [1, B]
-    dx, dy, dz = (rays_d_ref[0:1, :], rays_d_ref[1:2, :],
-                  rays_d_ref[2:3, :])
-    mint = mint_ref[:]
-    maxt = maxt_ref[:]
-    b = ox.shape[-1]
-
-    # safe inverse directions for the slab tests (|d|~0 axes degrade to
-    # a huge inverse; the resulting near/far still bracket correctly for
-    # rays parallel to a slab that START inside it, and the per-triangle
-    # test is exact anyway — the AABB gate only needs to be conservative)
-    big = jnp.float32(1e30)
-    inv = lambda x: jnp.where(jnp.abs(x) < 1e-12,
-                              jnp.where(x >= 0.0, big, -big), 1.0 / x)
-    idx_, idy, idz = inv(dx), inv(dy), inv(dz)
-
-    def cluster_step(c, carry):
-        t_best, tri_best, u_best, v_best = carry
-        # ---- top level: cluster AABB slab test over the whole block ---
-        t0x = (aabb_ref[c, 0] - ox) * idx_      # SMEM scalar broadcasts
-        t1x = (aabb_ref[c, 3] - ox) * idx_
-        t0y = (aabb_ref[c, 1] - oy) * idy
-        t1y = (aabb_ref[c, 4] - oy) * idy
-        t0z = (aabb_ref[c, 2] - oz) * idz
-        t1z = (aabb_ref[c, 5] - oz) * idz
+    def visit(c, t_best, tri_best):
+        # top level: slab test of the cluster AABB against the block
+        t0x = (box_ref[0, c] - ox) * ix
+        t1x = (box_ref[3, c] - ox) * ix
+        t0y = (box_ref[1, c] - oy) * iy
+        t1y = (box_ref[4, c] - oy) * iy
+        t0z = (box_ref[2, c] - oz) * iz
+        t1z = (box_ref[5, c] - oz) * iz
+        cap = jnp.minimum(maxt, t_best)
+        if any_hit:
+            cap = jnp.where(tri_best >= 0, -1.0, cap)
         near = jnp.maximum(jnp.maximum(jnp.minimum(t0x, t1x),
                                        jnp.minimum(t0y, t1y)),
                            jnp.maximum(jnp.minimum(t0z, t1z), mint))
         far = jnp.minimum(jnp.minimum(jnp.maximum(t0x, t1x),
                                       jnp.maximum(t0y, t1y)),
-                          jnp.minimum(jnp.maximum(t0z, t1z),
-                                      jnp.minimum(maxt, t_best)))
-        any_enter = jnp.max(jnp.where(near <= far, 1.0, 0.0)) > 0.0
+                          jnp.minimum(jnp.maximum(t0z, t1z), cap))
+        enter = jnp.max(jnp.where(live & (near <= far), 1, 0)) > 0
 
-        def skip():
-            return carry
+        def test(t_best, tri_best):
+            base = c * tc
+            w = [woop_ref[r, pl.ds(base, tc)][None, :] for r in range(12)]
 
-        def test():
-            return _cluster_tris(c, carry)
+            def xf(k):
+                w0, w1, w2, tr = w[4 * k:4 * k + 4]
+                return (w0 * col(ox) + w1 * col(oy) + w2 * col(oz) + tr,
+                        w0 * col(dx) + w1 * col(dy) + w2 * col(dz))
 
-        return jax.lax.cond(any_enter, test, skip)
+            opx, dpx = xf(0)
+            opy, dpy = xf(1)
+            opz, dpz = xf(2)
+            safe_dz = jnp.where(jnp.abs(dpz) < _DZ_EPS, _DZ_EPS, dpz)
+            t = -opz / safe_dz
+            u = opx + t * dpx
+            v = opy + t * dpy
+            mask = ((jnp.abs(dpz) >= _DZ_EPS) & (u >= 0.0) & (v >= 0.0)
+                    & (u + v <= 1.0) & (t > col(mint)) & (t < col(maxt)))
+            tm = jnp.where(mask, t, _MISS)
+            t_c = jnp.min(tm, axis=1)
+            j = jnp.min(jnp.where(tm == col(t_c), cols, tc), axis=1)
+            closer = t_c < t_best
+            return (jnp.where(closer, t_c, t_best),
+                    jnp.where(closer, base + j, tri_best))
 
-    def _cluster_tris(c, carry):
-        t_best, tri_best, u_best, v_best = carry
-        woop = woop_ref[c]                      # [3Tc, 4]
+        return jax.lax.cond(enter, test, lambda t, i: (t, i),
+                            t_best, tri_best)
 
-        def transform(k):
-            w0 = woop[k * tc:(k + 1) * tc, 0:1]
-            w1 = woop[k * tc:(k + 1) * tc, 1:2]
-            w2 = woop[k * tc:(k + 1) * tc, 2:3]
-            tr = woop[k * tc:(k + 1) * tc, 3:4]
-            return (w0 * ox + w1 * oy + w2 * oz + tr,
-                    w0 * dx + w1 * dy + w2 * dz)
-
-        opx, dpx = transform(0)
-        opy, dpy = transform(1)
-        opz, dpz = transform(2)
-        rz = pl.reciprocal(jnp.where(jnp.abs(dpz) < _DZ_EPS, 1.0, dpz),
-                           approx=True)
-        rz = rz * (2.0 - jnp.where(jnp.abs(dpz) < _DZ_EPS, 1.0, dpz) * rz)
-        t = -opz * rz
-        u = opx + t * dpx
-        v = opy + t * dpy
-        inside = jnp.minimum(jnp.minimum(u, v), 1.0 - u - v)
-        mask = ((inside >= 0.0) & (jnp.abs(dpz) >= _DZ_EPS)
-                & (t > mint) & (t < maxt))
-        tm = jnp.where(mask, t, _MISS)
-        t_c = jnp.min(tm, axis=0, keepdims=True)
-        closer = t_c < t_best
-        t_best = jnp.where(closer, t_c, t_best)
-        rows = jax.lax.broadcasted_iota(jnp.int32, tm.shape, 0)
-        hit_rows = jnp.where(tm == t_c, rows, tc)
-        row_best = jnp.min(hit_rows, axis=0, keepdims=True)
-        tri_best = jnp.where(closer, row_best + c * tc, tri_best)
+    def walk():
+        init = (jnp.full((b,), _MISS, jnp.float32),
+                jnp.full((b,), -1, jnp.int32))
         if not any_hit:
-            sel = (rows == row_best) & mask
-            zero = jnp.zeros_like(u)
-            u_c = jnp.sum(jnp.where(sel, u, zero), axis=0, keepdims=True)
-            v_c = jnp.sum(jnp.where(sel, v, zero), axis=0, keepdims=True)
-            u_best = jnp.where(closer, u_c, u_best)
-            v_best = jnp.where(closer, v_c, v_best)
-        return t_best, tri_best, u_best, v_best
+            return jax.lax.fori_loop(
+                0, n_clusters, lambda c, s: visit(c, *s), init)[1]
 
-    t_ref[:] = jnp.full((1, b), _MISS)
-    idx_ref[:] = jnp.zeros((1, b), jnp.int32)
-    if not any_hit:
-        u_ref[:] = jnp.zeros((1, b))
-        v_ref[:] = jnp.zeros((1, b))
+        def more(s):
+            pending = jnp.max(jnp.where(live & (s[2] < 0), 1, 0)) > 0
+            return (s[0] < n_clusters) & pending
 
-    @pl.when(live_ref[pl.program_id(0)] != 0)
-    def _():
-        init = (jnp.full((1, b), _MISS), jnp.zeros((1, b), jnp.int32),
-                jnp.zeros((1, b)), jnp.zeros((1, b)))
-        if not ordered:
-            t_best, tri_best, u_best, v_best = jax.lax.fori_loop(
-                0, c_clusters, cluster_step, init)
-        else:
-            # ---- block-level front-to-back traversal with early exit.
-            # Clusters are visited in precomputed near-to-far order from
-            # the block's hint cluster; the loop stops once even the
-            # CLOSEST point of the next cluster (conservatively:
-            # center distance − origin-box slack − max cluster radius)
-            # exceeds every live lane's current hit cap. Correct for
-            # every live lane; dead lanes (lane_live = 0) are excluded
-            # from the cap so stale rays can't pin the loop open.
-            k_b = hint_ref[pl.program_id(0)]
-            ckx = meta_ref[k_b, 0]
-            cky = meta_ref[k_b, 1]
-            ckz = meta_ref[k_b, 2]
-            r_max = meta_ref[0, 4]
-            lv = lane_live_ref[:] > 0.0
-            oxmin = jnp.min(jnp.where(lv, ox, big))
-            oxmax = jnp.max(jnp.where(lv, ox, -big))
-            oymin = jnp.min(jnp.where(lv, oy, big))
-            oymax = jnp.max(jnp.where(lv, oy, -big))
-            ozmin = jnp.min(jnp.where(lv, oz, big))
-            ozmax = jnp.max(jnp.where(lv, oz, -big))
-            dxm = jnp.maximum(jnp.abs(oxmin - ckx), jnp.abs(oxmax - ckx))
-            dym = jnp.maximum(jnp.abs(oymin - cky), jnp.abs(oymax - cky))
-            dzm = jnp.maximum(jnp.abs(ozmin - ckz), jnp.abs(ozmax - ckz))
-            d_box = jnp.sqrt(dxm * dxm + dym * dym + dzm * dzm)
-            # per-lane scene-exit distance: any hit satisfies
-            # t <= exit-from-global-AABB, so escaping rays get a finite
-            # cap instead of holding the loop open at maxt = 1e30
-            ex_x = jnp.maximum((meta_ref[0, 5] - ox) * idx_,
-                               (meta_ref[1, 5] - ox) * idx_)
-            ex_y = jnp.maximum((meta_ref[0, 6] - oy) * idy,
-                               (meta_ref[1, 6] - oy) * idy)
-            ex_z = jnp.maximum((meta_ref[0, 7] - oz) * idz,
-                               (meta_ref[1, 7] - oz) * idz)
-            t_exit = jnp.minimum(jnp.minimum(ex_x, ex_y), ex_z)
-            cap = jnp.minimum(maxt, t_exit * 1.001 + 1e-3)
-            far_eff = jnp.where(lv, cap, -big)
+        def step(s):
+            return (s[0] + 1,) + visit(s[0], s[1], s[2])
 
-            # exit checked every EXIT_STRIDE clusters: the cond's
-            # [1, B] → scalar reduction serializes the loop, so it is
-            # amortized over a group. Indices clamp at C-1 — revisiting
-            # a cluster is idempotent (min-accumulation), so the final
-            # (partial) group needs no masking.
-            stride = 4
+        return jax.lax.while_loop(more, step, (jnp.int32(0),) + init)[2]
 
-            def cond(carry):
-                i, t_best = carry[0], carry[1]
-                capped = jnp.minimum(t_best, far_eff)
-                if any_hit:
-                    # lanes that already found an occluder are done
-                    capped = jnp.where(t_best < _MISS, -big, capped)
-                t_cap = jnp.max(capped)
-                d_i = odist_ref[k_b, jnp.minimum(i, c_clusters - 1)]
-                return (i < c_clusters) & (d_i - d_box - r_max <= t_cap)
-
-            def bodyw(carry):
-                i = carry[0]
-                rest = carry[1:]
-                for j in range(stride):
-                    c = order_ref[k_b, jnp.minimum(i + j,
-                                                   c_clusters - 1)]
-                    rest = cluster_step(c, rest)
-                return (i + stride,) + rest
-
-            res = jax.lax.while_loop(cond, bodyw,
-                                     (jnp.int32(0),) + init)
-            t_best, tri_best, u_best, v_best = res[1:]
-        t_ref[:] = t_best
-        idx_ref[:] = tri_best
-        if not any_hit:
-            u_ref[:] = u_best
-            v_ref[:] = v_best
+    any_live = jnp.max(jnp.where(live, 1, 0)) > 0
+    tri_ref[:] = jax.lax.cond(any_live, walk,
+                              lambda: jnp.full((b,), -1, jnp.int32))
 
 
-def _trace_kernel(woop_ref, rays_o_ref, rays_d_ref, mint_ref, maxt_ref,
-                  t_ref, idx_ref, u_ref, v_ref, *, tc: int, any_hit: bool):
-    c = pl.program_id(1)
-    woop = woop_ref[0]                          # [3Tc, 4]
-    # Transform on the VPU with [Tc,1]×[1,B] broadcast FMAs: with K=4 the
-    # MXU runs at a tiny fraction of peak and the 6-pass f32 mode makes it
-    # slower than straight vector math (measured 1.82 → 1.60 ms / 256k rays)
-    ox, oy, oz = (rays_o_ref[0:1, :], rays_o_ref[1:2, :],
-                  rays_o_ref[2:3, :])           # [1, B]
-    dx, dy, dz = (rays_d_ref[0:1, :], rays_d_ref[1:2, :],
-                  rays_d_ref[2:3, :])
+@functools.partial(jax.jit, static_argnames=("any_hit", "block", "tc",
+                                             "num_warps", "interpret"))
+def trace_ids(woop, boxes, rays, *, any_hit: bool = False,
+              block: int = TRACE_BLOCK, tc: int = TRACE_TC,
+              num_warps: int = TRACE_WARPS, interpret: bool = False):
+    """Hit triangle id per ray, -1 for a miss.
 
-    def transform(k):
-        w0 = woop[k * tc:(k + 1) * tc, 0:1]     # [Tc, 1]
-        w1 = woop[k * tc:(k + 1) * tc, 1:2]
-        w2 = woop[k * tc:(k + 1) * tc, 2:3]
-        tr = woop[k * tc:(k + 1) * tc, 3:4]
-        return (w0 * ox + w1 * oy + w2 * oz + tr,
-                w0 * dx + w1 * dy + w2 * dz)    # op_k, dp_k [Tc, B]
-
-    opx, dpx = transform(0)
-    opy, dpy = transform(1)
-    opz, dpz = transform(2)
-
-    safe_dz = jnp.where(jnp.abs(dpz) < _DZ_EPS, _DZ_EPS, dpz)
-    t = -opz / safe_dz
-    u = opx + t * dpx
-    v = opy + t * dpy
-
-    mint = mint_ref[:]                          # [1, B]
-    maxt = maxt_ref[:]
-    inside = jnp.minimum(jnp.minimum(u, v), 1.0 - u - v)
-    mask = ((inside >= 0.0) & (jnp.abs(dpz) >= _DZ_EPS)
-            & (t > mint) & (t < maxt))
-    tm = jnp.where(mask, t, _MISS)              # [Tc, B]
-
-    t_best = jnp.min(tm, axis=0, keepdims=True)           # [1, B]
-    rows = jax.lax.broadcasted_iota(jnp.int32, tm.shape, 0)
-    # first row achieving the min (breaks ties deterministically)
-    hit_rows = jnp.where(tm == t_best, rows, tc)
-    row_best = jnp.min(hit_rows, axis=0, keepdims=True)   # [1, B]
-    tri_best = row_best + c * tc                          # [1, B]
-    if not any_hit:
-        # one-hot select of the winner's barycentrics (sanitized: masked
-        # lanes may hold inf·0 garbage)
-        sel = (rows == row_best) & mask
-        zero = jnp.zeros_like(u)
-        u_best = jnp.sum(jnp.where(sel, u, zero), axis=0, keepdims=True)
-        v_best = jnp.sum(jnp.where(sel, v, zero), axis=0, keepdims=True)
-
-    @pl.when(c == 0)
-    def _():
-        t_ref[:] = t_best
-        idx_ref[:] = tri_best
-        if not any_hit:
-            u_ref[:] = u_best
-            v_ref[:] = v_best
-
-    @pl.when(c > 0)
-    def _():
-        prev_t = t_ref[:]
-        closer = t_best < prev_t
-        t_ref[:] = jnp.where(closer, t_best, prev_t)
-        idx_ref[:] = jnp.where(closer, tri_best, idx_ref[:])
-        if not any_hit:
-            u_ref[:] = jnp.where(closer, u_best, u_ref[:])
-            v_ref[:] = jnp.where(closer, v_best, v_ref[:])
-
-
-@functools.partial(jax.jit, static_argnames=("tc", "block", "any_hit"))
-def trace(woop_clusters, rays_o, rays_d, mint, maxt, tc: int = 64,
-          block: int = DEF_BLOCK, any_hit: bool = False, live=None,
-          cluster_aabb=None, cluster_meta=None, cluster_order=None,
-          cluster_odist=None):
-    """Trace a wavefront against all clusters.
-
-    woop_clusters: [C, 3*tc, 4] from build_woop_clustered (device array)
-    rays_o: [4, N] (x, y, z, 1); rays_d: [4, N] (x, y, z, 0)
-    mint/maxt: [1, N]
-    live: optional [N] bool/int lane-liveness; blocks with no live lane
-    skip the cluster loop entirely (their lanes report miss).
-    cluster_meta/order/odist (build_cluster_order): enable front-to-back
-    ordered traversal with early exit. Dead lanes' outputs may then
-    differ from the exhaustive loop (their rays stop contributing to
-    the exit cap) — callers must gate on `live`, as the integrator does.
-    Returns (t [N], tri [N] int32, hit [N] bool, u [N], v [N]).
-    any_hit=True skips barycentric bookkeeping (shadow rays).
-    """
-    c_clusters = woop_clusters.shape[0]
-    n = rays_o.shape[1]
+    woop [12, C·tc], boxes [8, C] (build_trace_tables); rays [8, N] with
+    N a multiple of `block` (rows o xyz, d xyz, mint, maxt). any_hit=True
+    returns SOME occluder in (mint, maxt), not the closest. `interpret`
+    runs the kernel on the CPU, for tests only."""
+    n = rays.shape[1]
     assert n % block == 0, (n, block)
-    r_blocks = n // block
-
-    f32 = jax.ShapeDtypeStruct((1, n), jnp.float32)
-    # fused form: whole Woop table VMEM-resident, in-kernel cluster loop
-    # (no per-cluster grid-step overhead). Falls back to the 2D grid for
-    # tables past the VMEM budget.
-    table_bytes = c_clusters * 3 * tc * 4 * 4
-    if table_bytes <= 8 << 20:
-        if live is None:
-            block_live = jnp.ones((r_blocks,), jnp.int32)
-            lane_live = jnp.ones((1, n), jnp.float32)
-        else:
-            live_i = live.reshape(r_blocks, block).astype(jnp.int32)
-            block_live = jnp.max(live_i, axis=1)
-            lane_live = live.reshape(1, n).astype(jnp.float32)
-        if cluster_aabb is None:
-            # everything-box: the slab gate always passes
-            cluster_aabb = jnp.tile(
-                jnp.asarray([-1e30] * 3 + [1e30] * 3 + [0.0, 0.0],
-                            jnp.float32), (c_clusters, 1))
-        ordered = cluster_order is not None
-        if ordered:
-            # per-block hint: nearest cluster center to the block's
-            # first ray origin (sorted wavefronts make lane 0
-            # representative; a poor hint only weakens the exit bound)
-            o_first = rays_o[0:3, ::block].T            # [r_blocks, 3]
-            cen = cluster_meta[:, 0:3]
-            d2 = jnp.sum((o_first[:, None, :] - cen[None]) ** 2, -1)
-            blk_hint = jnp.argmin(d2, axis=1).astype(jnp.int32)
-        else:
-            cluster_meta = jnp.zeros((1, 8), jnp.float32)
-            cluster_order = jnp.zeros((1, 1), jnp.int32)
-            cluster_odist = jnp.zeros((1, 1), jnp.float32)
-            blk_hint = jnp.zeros((r_blocks,), jnp.int32)
-        kernel = functools.partial(_trace_kernel_fused, tc=tc,
-                                   c_clusters=c_clusters,
-                                   any_hit=any_hit, ordered=ordered)
-        col = lambda rows: pl.BlockSpec((rows, block), lambda r: (0, r),
-                                        memory_space=pltpu.VMEM)
-        t_out, idx_out, u_out, v_out = pl.pallas_call(
-            kernel,
-            grid=(r_blocks,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),     # block_live
-                pl.BlockSpec(woop_clusters.shape, lambda r: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),     # cluster aabb
-                pl.BlockSpec(memory_space=pltpu.SMEM),     # cluster meta
-                pl.BlockSpec(memory_space=pltpu.SMEM),     # order
-                pl.BlockSpec(memory_space=pltpu.SMEM),     # odist
-                pl.BlockSpec(memory_space=pltpu.SMEM),     # blk hint
-                col(1),                                    # lane live
-                col(4), col(4), col(1), col(1),
-            ],
-            out_specs=(col(1), col(1), col(1), col(1)),
-            out_shape=(f32, jax.ShapeDtypeStruct((1, n), jnp.int32),
-                       f32, f32),
-            # big cluster tables legitimately need more than the 16 MB
-            # default scoped-VMEM stack (v5e has 128 MB physical VMEM)
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 << 20),
-        )(block_live, woop_clusters, cluster_aabb, cluster_meta,
-          cluster_order, cluster_odist, blk_hint, lane_live,
-          rays_o, rays_d, mint, maxt)
-        t = t_out[0]
-        hit = t < _MISS
-        return t, jnp.where(hit, idx_out[0], 0), hit, u_out[0], v_out[0]
-
-    kernel = functools.partial(_trace_kernel, tc=tc, any_hit=any_hit)
-    grid = (r_blocks, c_clusters)
-
-    out_spec = pl.BlockSpec((1, block), lambda r, c: (0, r),
-                            memory_space=pltpu.VMEM)
-    t_out, idx_out, u_out, v_out = pl.pallas_call(
+    n_clusters = boxes.shape[1]
+    assert woop.shape == (12, n_clusters * tc), (woop.shape, tc)
+    kernel = functools.partial(_trace_kernel, tc=tc, n_clusters=n_clusters,
+                               any_hit=any_hit)
+    # under shard_map the rays vary over mesh axes and the scene tables do
+    # not; the kernel takes (and its ids keep) the rays' variance
+    vma = jax.typeof(rays).vma
+    if vma:
+        woop, boxes = (jax.lax.pcast(x, tuple(vma), to="varying")
+                       for x in (woop, boxes))
+    return pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 3 * tc, 4), lambda r, c: (c, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, block), lambda r, c: (0, r),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, block), lambda r, c: (0, r),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block), lambda r, c: (0, r),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block), lambda r, c: (0, r),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(out_spec,
-                   pl.BlockSpec((1, block), lambda r, c: (0, r),
-                                memory_space=pltpu.VMEM),
-                   out_spec, out_spec),
-        out_shape=(f32, jax.ShapeDtypeStruct((1, n), jnp.int32), f32, f32),
-    )(woop_clusters, rays_o, rays_d, mint, maxt)
-
-    t = t_out[0]
-    hit = t < _MISS
-    return t, jnp.where(hit, idx_out[0], 0), hit, u_out[0], v_out[0]
+        grid=(n // block,),
+        in_specs=[pl.BlockSpec((8, block), lambda i: (0, i)),
+                  pl.BlockSpec(woop.shape, lambda i: (0, 0)),
+                  pl.BlockSpec(boxes.shape, lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((block,), lambda i: (i,)),
+        out_shape=jax.ShapeDtypeStruct((n,), jnp.int32, vma=vma),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="any_hit_trace" if any_hit else "closest_hit_trace",
+    )(rays, woop, boxes)
 
 
-def recompute_uv(scene: SceneData, o, d, t, tri, hit):
-    """Barycentrics of the chosen hit via a per-ray 12-float gather of the
-    triangle's Woop row — O(N), no [N, T] blowup."""
-    w = scene.woop_o                      # [4, 3T] (dense.build_woop layout)
-    t3 = w.shape[1]
-    wt = w.T.reshape(t3 // 3, 3, 4)       # [T, k, j]
-    rows = wt[tri]                        # [N, 3, 4]
-    oh = jnp.concatenate([o, jnp.ones_like(o[..., :1])], axis=-1)
-    dh = jnp.concatenate([d, jnp.zeros_like(d[..., :1])], axis=-1)
-    op = jnp.einsum("nkj,nj->nk", rows, oh)
-    dp = jnp.einsum("nkj,nj->nk", rows, dh)
-    u = op[..., 0] + t * dp[..., 0]
-    v = op[..., 1] + t * dp[..., 1]
-    return jnp.where(hit, u, 0.0), jnp.where(hit, v, 0.0)
-
-
-def _pack_rays(o, d):
+def _pack_rays(o, d, mint, maxt, live, block):
+    """[8, N_pad] kernel ray rows; dead and padding lanes get maxt = -inf."""
     n = o.shape[0]
-    ro = jnp.concatenate([o.T, jnp.ones((1, n), o.dtype)], axis=0)
-    rd = jnp.concatenate([d.T, jnp.zeros((1, n), d.dtype)], axis=0)
-    return ro, rd
-
-
-def _pad(x, n_pad, fill=0.0):
+    maxt = jnp.broadcast_to(maxt, (n,))
+    if live is not None:
+        maxt = jnp.where(live, maxt, -jnp.inf)
+    rows = jnp.concatenate([o.T, d.T, jnp.broadcast_to(mint, (n,))[None],
+                            maxt[None]], axis=0).astype(jnp.float32)
+    n_pad = (-n) % block
     if n_pad:
-        return jnp.pad(x, ((0, n_pad),) + ((0, 0),) * (x.ndim - 1),
-                       constant_values=fill)
-    return x
+        fill = jnp.zeros((8, n_pad), jnp.float32).at[7].set(-jnp.inf)
+        rows = jnp.concatenate([rows, fill], axis=1)
+    return jax.lax.stop_gradient(rows)
 
 
-def _block_for(n, woop_clusters=None):
-    """Ray block size: full-width for real wavefronts, 128 for tiny test
-    wavefronts (rays pad up to a block multiple either way). The fused
-    kernel's ~14 [Tc, B] f32 intermediates plus the double-buffered
-    Woop table must fit the 16 MB scoped-VMEM budget, so B shrinks as
-    the scene's cluster table grows."""
-    if n < DEF_BLOCK:
-        return 128
-    block = DEF_BLOCK
-    if woop_clusters is not None:
-        c, rows3, _ = woop_clusters.shape
-        tc = rows3 // 3
-        table = 2 * c * rows3 * 4 * 4          # double-buffered
-        while block > 512 and table + 14 * tc * block * 4 > 13 << 20:
-            block //= 2
-    return block
+def hit_from_woop(woop_o, woop_d, o, d, tri, hit):
+    """(t, u, v) of triangle `tri` per ray from its Woop rows — the same
+    arithmetic as dense.intersect_cluster on one column, written as
+    elementwise sums (no reduced-precision matmul). It reads woop_o for
+    the origin and woop_d for the direction as dense.py does, so AD
+    through it lands where AD through dense.py does. Misses give t = inf,
+    u = v = 0."""
+    n_tris = woop_o.shape[1] // 3
+    ro = woop_o.T.reshape(n_tris, 3, 4)[tri]              # [N, k, j]
+    rd = woop_d.T.reshape(n_tris, 3, 3)[tri]
+    op = (ro[..., 0] * o[:, None, 0] + ro[..., 1] * o[:, None, 1]
+          + ro[..., 2] * o[:, None, 2] + ro[..., 3])
+    dp = (rd[..., 0] * d[:, None, 0] + rd[..., 1] * d[:, None, 1]
+          + rd[..., 2] * d[:, None, 2])
+    dz = dp[:, 2]
+    safe_dz = jnp.where(jnp.abs(dz) < _DZ_EPS, _DZ_EPS, dz)
+    t = -op[:, 2] / safe_dz
+    u = op[:, 0] + t * dp[:, 0]
+    v = op[:, 1] + t * dp[:, 1]
+    return (jnp.where(hit, t, jnp.inf), jnp.where(hit, u, 0.0),
+            jnp.where(hit, v, 0.0))
 
 
-def pallas_intersect(scene: SceneData, o, d, mint, maxt,
-                     live=None) -> Intersection:
-    """Closest-hit trace via the fused kernel; hit record filled by one
-    packed-attribute gather (dense.fill_intersection). `live`: optional
-    [N] lane mask — all-dead ray blocks skip tracing (miss)."""
+def kernel_intersect(scene: SceneData, o, d, mint, maxt=jnp.inf,
+                     live=None, interpret: bool = False) -> Intersection:
+    """Closest-hit trace through the kernel; hit record from the Woop
+    recompute and one packed-attribute gather. `live`: optional [N] lane
+    mask — dead lanes report a miss and all-dead blocks skip tracing."""
     n = o.shape[0]
-    block = _block_for(n, scene.woop_clusters)
-    n_pad = (-n) % block
-    o_p, d_p = _pad(o, n_pad), _pad(d, n_pad, 1.0)
-    mint_p = _pad(mint, n_pad)
-    maxt_p = _pad(maxt, n_pad, -1.0)
-    ro, rd = _pack_rays(o_p, d_p)
-    live_p = None if live is None else _pad(
-        live.astype(jnp.int32), n_pad)
-    t, tri, hit, u, v = trace(scene.woop_clusters, ro, rd,
-                              mint_p[None, :], maxt_p[None, :],
-                              tc=scene.woop_clusters.shape[1] // 3,
-                              block=block, live=live_p,
-                              cluster_aabb=getattr(
-                                  scene, "cluster_aabb", None),
-                              **_order_tables(scene))
-    return fill_intersection(scene, o, d, t[:n], u[:n], v[:n], tri[:n],
-                             hit[:n])
+    rays = _pack_rays(o, d, mint, maxt, live, TRACE_BLOCK)
+    tri = trace_ids(scene.trace_woop, scene.trace_box, rays,
+                    interpret=interpret)[:n]
+    hit = tri >= 0
+    tri = jnp.maximum(tri, 0)
+    t, u, v = hit_from_woop(scene.woop_o, scene.woop_d, o, d, tri, hit)
+    return fill_intersection(scene, o, d, t, u, v, tri, hit)
 
 
-def _order_tables(scene):
-    meta = getattr(scene, "cluster_meta", None)
-    if meta is None:
-        return {}
-    return {"cluster_meta": meta,
-            "cluster_order": scene.cluster_order,
-            "cluster_odist": scene.cluster_odist}
-
-
-def pallas_occluded(scene: SceneData, o, d, mint, maxt, live=None):
-    """Any-hit (shadow) trace."""
+def kernel_occluded(scene: SceneData, o, d, mint, maxt, live=None,
+                    interpret: bool = False):
+    """Any-hit (shadow) trace: occluded [N] bool."""
     n = o.shape[0]
-    block = _block_for(n, scene.woop_clusters)
-    n_pad = (-n) % block
-    o_p, d_p = _pad(o, n_pad), _pad(d, n_pad, 1.0)
-    mint_p = _pad(mint, n_pad)
-    maxt_p = _pad(maxt, n_pad, -1.0)   # maxt < mint ⇒ no hit
-    ro, rd = _pack_rays(o_p, d_p)
-    live_p = None if live is None else _pad(
-        live.astype(jnp.int32), n_pad)
-    _, _, hit, _, _ = trace(scene.woop_clusters, ro, rd,
-                            mint_p[None, :], maxt_p[None, :],
-                            tc=scene.woop_clusters.shape[1] // 3,
-                            block=block, any_hit=True, live=live_p,
-                            cluster_aabb=getattr(
-                                scene, "cluster_aabb", None),
-                            **_order_tables(scene))
-    return hit[:n]
+    rays = _pack_rays(o, d, mint, maxt, live, TRACE_BLOCK)
+    tri = trace_ids(scene.trace_woop, scene.trace_box, rays, any_hit=True,
+                    interpret=interpret)
+    return tri[:n] >= 0

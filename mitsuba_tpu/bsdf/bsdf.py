@@ -1,10 +1,10 @@
 """BSDF families with branchless wavefront dispatch.
 
 The reference dispatches `bsdf->sample/eval/pdf` through a virtual call per
-ray (ref: include/mitsuba/render/bsdf.h:224,378-449). On TPU a wavefront
+ray (ref: include/mitsuba/render/bsdf.h:224,378-449). On an accelerator a wavefront
 holds rays touching different materials, so dispatch-by-branching would
 serialize; instead every family's closed-form sample/eval/pdf runs on the
-whole wavefront (cheap VPU math) and per-lane results are selected by the
+whole wavefront (cheap elementwise math) and per-lane results are selected by the
 material type code — the reference's lobe-type flag system (bsdf.h:233-296)
 becomes data. Conventions match the reference exactly:
 
@@ -847,7 +847,7 @@ def resolve_params(scene: S.SceneData, mat_id, uv=None):
 def _codes(table, families):
     """Dispatch set: all registered families, or the static subset actually
     present in the scene (PathTracer.families) — skipping absent families
-    removes their VPU work entirely."""
+    removes their elementwise work entirely."""
     if families is None:
         return list(table.items())
     return [(c, f) for c, f in table.items() if c in families]

@@ -1,12 +1,12 @@
 """Irawan–Marschner woven cloth BRDF.
 
-TPU-native port of the reference's `irawan` plugin (ref:
+Wavefront port of the reference's `irawan` plugin (ref:
 src/bsdfs/irawan.{h,cpp} — based on Piti Irawan's thesis "The Appearance
 of Woven Cloth", 2008). The reference evaluates one uv-located yarn
 segment per shading point via a virtual call; here the weave patterns are
 compiled into a pool of padded arrays (grids / yarn tables / scalar meta)
 bound at scene compile — the eval is a pair of gathers plus closed-form
-VPU math over the whole wavefront.
+elementwise math over the whole wavefront.
 
 Semantics mirrored from the reference:
   * the weave tile is addressed by (u·repeatU, (1-v)·repeatV);

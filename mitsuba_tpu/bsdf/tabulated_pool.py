@@ -3,7 +3,7 @@
 The reference's tabulated/BTF plugins (ref: src/bsdfs/tabulated_bsdf.cpp,
 tabulated_btf_4d.cpp) load measured tables per plugin instance; here
 `compile_scene` binds all tables as one [K, n_ti, n_to, n_phi, 3] array.
-Like the megakernel's VMEM tables, they are scene-compile constants — jit
+They are scene-compile constants — jit
 captures them by closure, so switching scenes retriggers specialization.
 """
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Chi-square goodness-of-fit harness for directional samplers.
 
-TPU-native re-design of the reference's ChiSquare tester (ref: include/
+Wavefront re-design of the reference's ChiSquare tester (ref: include/
 mitsuba/core/chisquare.h:35-167, src/libcore/chisquare.cpp): bin the sphere
 in (cosθ, φ), histogram a large batch of samples drawn from `sample_fn`
 (vectorized, one jit'd call — replaces the reference's per-sample loop), and
 numerically integrate the claimed pdf over each bin with a tensorized
 midpoint rule (replaces NestedAdaptiveQuadrature — a fixed fine subdivision
-is cheap on TPU and adequate for the smooth pdfs under test; delta lobes are
+is cheap on an accelerator and adequate for the smooth pdfs under test; delta lobes are
 excluded exactly as the reference does via lobe masks). Pools low-expectation
 cells and compares with a χ² test at the reference's significance level
 (test_chisquare.cpp:26-30 uses 0.0025 with Šidák correction).

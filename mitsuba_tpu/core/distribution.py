@@ -1,9 +1,9 @@
 """Discrete distributions: 1D CDF tables and 2D marginal/conditional tables.
 
-TPU-native counterparts of the reference's DiscreteDistribution (ref:
+Wavefront counterparts of the reference's DiscreteDistribution (ref:
 include/mitsuba/core/pmf.h) and the envmap's row/column CDF scheme (ref:
 src/emitters/envmap.cpp:99-106,567-601). CDFs are built host-side (numpy) at
-scene-compile time and live in HBM as flat arrays; sampling is a vectorized
+scene-compile time and live in device memory as flat arrays; sampling is a vectorized
 searchsorted + sample-reuse, matching `DiscreteDistribution::sampleReuse`.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Semantics follow the reference's exact formulations (ref: include/mitsuba/
 core/util.h:473-567 — fresnelDielectricExt / fresnelConductorExact), written
-branchless for the VPU.
+branchless for wide vector units.
 """
 from __future__ import annotations
 

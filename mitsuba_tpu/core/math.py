@@ -1,6 +1,6 @@
 """Vector math, shading frames, and geometric helpers.
 
-TPU-native counterpart of the reference's fixed-size vector/frame headers
+Wavefront counterpart of the reference's fixed-size vector/frame headers
 (ref: include/mitsuba/core/vector.h, frame.h, util.h). Everything here is
 structure-of-arrays: a "vector" is a jnp array whose *last* axis has size 3,
 and all ops broadcast over arbitrary leading (wavefront) axes.
@@ -20,6 +20,12 @@ import numpy as _np
 
 # numpy, not jnp: keep module import free of device-backend initialization
 ONE_MINUS_EPS = float(_np.nextafter(_np.float32(1.0), _np.float32(0.0)))
+
+
+def matmul(a: jax.Array, b: jax.Array) -> jax.Array:
+    """f32 matrix product at full precision (a GPU would otherwise be free
+    to run a default-precision `@` in TF32, ~3 decimal digits)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def dot(a: jax.Array, b: jax.Array) -> jax.Array:
@@ -73,7 +79,7 @@ def coordinate_system(n: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Branchless orthonormal basis from a unit normal.
 
     Duff et al. 2017 construction — replaces the reference's branchy
-    ``coordinateSystem`` (src/libcore/util.cpp) with VPU-friendly select-free
+    ``coordinateSystem`` (src/libcore/util.cpp) with vector-friendly select-free
     math. Returns (s, t) with [s, t, n] right-handed orthonormal.
     """
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]

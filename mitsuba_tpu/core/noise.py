@@ -2,10 +2,10 @@
 
 Counterpart of the reference's noise utilities (ref:
 include/mitsuba/core/noise.h:34, src/libcore/noise.cpp — Perlin's
-improved noise as used by procedural textures). TPU-native: the
+improved noise as used by procedural textures). Wavefront design: the
 permutation table is generated from a seed at build time and baked as a
 constant; lookups are vectorized gathers over the wavefront, all else is
-VPU polynomial math. Matches the classic reference semantics: values in
+elementwise polynomial math. Matches the classic reference semantics: values in
 [-1, 1], C² fade curve 6t⁵-15t⁴+10t³, 12 gradient directions.
 """
 from __future__ import annotations

@@ -8,7 +8,7 @@ backward pass regenerates the exact forward sample stream from indices alone,
 with no stored tape (SURVEY.md §7 "Differentiable mode").
 
 The hash is PCG4D (Jarzynski & Olano, JCGT 2020): pure uint32 mul/add/xor/shift
-— VPU-friendly, and reimplemented bit-identically in numpy by the CPU oracle
+— vector-friendly, and reimplemented bit-identically in numpy by the CPU oracle
 (tests/oracle/rng.py) so image allclose tests share one sample stream.
 """
 from __future__ import annotations

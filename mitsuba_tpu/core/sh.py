@@ -2,10 +2,10 @@
 
 Counterpart of the reference's SHVector/SHSampler machinery (ref:
 include/mitsuba/core/shvector.h:486, src/libcore/shvector.cpp) used by the
-shProjection utilities and sh_scaled BSDFs. TPU-native design: a band-L
-expansion is a flat coefficient vector [L², ] evaluated with VPU-only
+shProjection utilities and sh_scaled BSDFs. Wavefront design: a band-L
+expansion is a flat coefficient vector [L², ] evaluated with elementwise-only
 recurrences over whole wavefronts; projection is a single matmul of the
-basis matrix against function samples (MXU); sampling uses a precomputed
+basis matrix against function samples (matmul); sampling uses a precomputed
 2D CDF over a (θ, φ) grid of the reconstructed function (the reference's
 hierarchical SHSampler serves the same role, shvector.h:486).
 
@@ -28,7 +28,7 @@ def sh_index(l: int, m: int) -> int:
 
 def eval_basis(bands: int, d):
     """Evaluate all L² real SH basis functions at unit directions d
-    [..., 3]. Returns [..., L²]. Pure VPU math (stable upward recurrence
+    [..., 3]. Returns [..., L²]. Pure elementwise math (stable upward recurrence
     on associated Legendre polynomials, matching shvector.cpp eval)."""
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
     ct = z
@@ -86,7 +86,7 @@ def eval_sh(coeffs, d):
 def project(bands: int, fn_vals, dirs, weights):
     """Project sampled function values onto SH: c_i = Σ w_k f_k y_i(d_k).
     fn_vals [N], dirs [N, 3], weights [N] (quadrature or 4π/N for MC).
-    One [L², N] × [N] matmul — MXU-friendly for large N."""
+    One [L², N] × [N] matmul — matmul-friendly for large N."""
     basis = eval_basis(bands, dirs)                  # [N, L²]
     return jnp.einsum("nk,n->k", basis, fn_vals * weights)
 

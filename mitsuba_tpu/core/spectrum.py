@@ -64,7 +64,7 @@ def blackbody(temperature_k, lambdas_nm):
 # The reference recompiles with SPECTRUM_SAMPLES spectral bins over
 # 360-830nm (spectrum.h:25-33); BSDF/emitter values become interpolated
 # spectra (InterpolatedSpectrum, .spd files) integrated against the CIE
-# observer at output time. The TPU build renders spectrally WITHOUT a
+# observer at output time. This renderer renders spectrally WITHOUT a
 # channel-count rebuild: the 3-channel pipeline evaluates 3 spectral bins
 # per pass (integrator/spectral.py render_spectral), so K bins cost K/3
 # renders and every code path (BSDFs, media, kernels) is reused as-is —

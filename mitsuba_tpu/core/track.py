@@ -5,7 +5,7 @@ core/track.h:35,335 + track.cpp:394): transforms are decomposed into
 translation / rotation (quaternion) / scale keyframes; evaluation lerps
 T and S and slerps R, exactly the reference's eval() semantics.
 
-TPU mapping of motion blur (the reference's 4D kd-tree `deformable`
+Wavefront mapping of motion blur (the reference's 4D kd-tree `deformable`
 shape + sensor shutter sampling): the scene compiler is cheap and
 host-side, so motion is rendered by TIME-SLICED distribution ray
 tracing — `render_motion` compiles the scene at n_t stratified shutter

@@ -54,7 +54,7 @@ def build_alias_table(pmf: np.ndarray) -> np.ndarray:
     """Walker alias table for a discrete pmf → [K, 2] (accept prob,
     alias index as float32). Sampling: k = floor(u·K); take k if
     u' < prob[k] else alias[k] — exact, O(1), one packed row gather
-    (the TPU-native replacement for the per-lane column-CDF scan)."""
+    (the wavefront replacement for the per-lane column-CDF scan)."""
     pmf = np.asarray(pmf, np.float64)
     k = len(pmf)
     scaled = pmf * k / max(pmf.sum(), 1e-300)

@@ -4,7 +4,9 @@ Wavefront analog of ImageBlock/Film (ref: include/mitsuba/render/
 imageblock.h:40,124-200, film.h:37; SURVEY Appendix A.6). The image is a
 [H, W, 4] accumulator (RGB + filter weight, the reference's
 ESpectrumAlphaWeight layout minus alpha). Splatting walks the static K×K
-filter footprint with scatter-adds — deterministic on TPU, and for the box
+filter footprint with scatter-adds — atomics on a GPU, so the float sums
+may land in another order from run to run (chip_smoke.py phase 7 reports
+whether two renders are bit-identical), and for the box
 filter it collapses to a single scatter per sample. NaN samples are
 rejected, not propagated (imageblock.h:146-151).
 """

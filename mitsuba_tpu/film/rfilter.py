@@ -2,7 +2,7 @@
 
 Each filter is (radius, eval(x)) with x the 1D offset from the sample — the
 reference discretizes into a lookup; here the closed forms run directly on
-the VPU inside the splat kernel. All separable, as in the reference.
+elementwise math inside the splat kernel. All separable, as in the reference.
 """
 from __future__ import annotations
 

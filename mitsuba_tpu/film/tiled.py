@@ -2,7 +2,7 @@
 
 Counterpart of the reference's `tiledhdrfilm` (ref: src/films/
 tiledhdrfilm.cpp — a tiled OpenEXR written incrementally so huge films
-never materialise in RAM). TPU redesign: tiles are crop-window
+never materialise in RAM). Wavefront redesign: tiles are crop-window
 wavefronts (the camera's pixel_xy interface makes a crop a simple index
 range); each tile renders to completion and is flushed straight into a
 memory-mapped float32 output, so host memory stays O(tile²) regardless

@@ -9,7 +9,7 @@ Gaussian filter widths (β ∝ s2/(1+s2) of the occlusion spectrum) and an
 adaptive spp estimate; a cross-pixel blur with the derived widths removes
 the residual shadow noise without blurring shadow edges.
 
-TPU shape: the sampling pass is the ordinary direct-illumination
+Wavefront shape: the sampling pass is the ordinary direct-illumination
 wavefront with two extra per-lane reductions (min/max occluder ratios
 via masked scatter-min/max); the reconstruction pass is a separable
 variable-width Gaussian evaluated as a fixed K-tap window (shape-static;

@@ -6,7 +6,7 @@ pixel until the Student-t confidence interval of the pixel mean shrinks
 below maxError·mean (quality/pValue properties), delegating actual
 radiance estimation to a nested integrator.
 
-TPU-native redesign: per-pixel *dynamic* sample counts are hostile to
+Wavefront redesign: per-pixel *dynamic* sample counts are hostile to
 fixed-shape compilation, so each outer pass keeps a CONSTANT wavefront of
 H·W lanes and re-aims them: converged pixels give up their lanes, which
 are redistributed round-robin over the unconverged set (an argsort by

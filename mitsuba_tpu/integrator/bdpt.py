@@ -2,7 +2,7 @@
 
 Counterpart of the reference `bdpt` plugin over libbidir (ref:
 src/integrators/bdpt/bdpt.cpp, src/libbidir/{path,vertex,edge}.cpp,
-pathsampler.cpp; SURVEY.md §2.3). TPU-native redesign: instead of
+pathsampler.cpp; SURVEY.md §2.3). Wavefront redesign: instead of
 per-path `Path`/`PathVertex` object chains (vertex.h:48), both subpaths
 are generated as fixed-depth *vertex arrays* via `lax.scan` — position,
 normal, material id, throughput, solid-angle forward/reverse pdfs plus

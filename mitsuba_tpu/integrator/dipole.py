@@ -7,9 +7,9 @@ the target shape's surface and evaluates E there; at render time the
 diffusion term is Mo(x) = Σ_i R_d(‖x−x_i‖)·E_i·A_i and the outgoing
 radiance adds (Ft/π)·Mo.
 
-TPU-native redesign: the reference gathers through an octree
+Wavefront redesign: the reference gathers through an octree
 (irrproc.h); here the gather is a dense [N_pixels, K_samples] distance
-matrix contracted against the irradiance table — two MXU-shaped
+matrix contracted against the irradiance table — two matmul-shaped
 matmul-like ops, no pointer tree. K ≤ a few thousand keeps it cheap; the
 octree's O(log) pruning is unnecessary because R_d decays exponentially
 and XLA fuses the mask.
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import rng
-from ..core.math import SHADOW_EPSILON, dot
+from ..core.math import SHADOW_EPSILON, dot, matmul
 from ..emitter.emitter import sample_direct
 from ..scene.scene import SceneData
 from .common import offset_ray_origin, ray_mint
@@ -137,10 +137,10 @@ class DipoleIntegrator(PathTracer):
     def dipole_mo(self, table: DipoleTable, x):
         """Mo(x) [N, 3] = Σ_i R_d(‖x−x_i‖)·E_i·A_i, dense contraction."""
         alpha_p, sig_tr, zr, zv = self._profile()
-        # [N, K] squared distances (MXU: ‖x‖² + ‖y‖² − 2x·y)
+        # [N, K] squared distances (matmul: ‖x‖² + ‖y‖² − 2x·y)
         x2 = jnp.sum(x * x, axis=-1, keepdims=True)
         y2 = jnp.sum(table.p * table.p, axis=-1)[None, :]
-        r2 = jnp.maximum(x2 + y2 - 2.0 * (x @ table.p.T), 0.0)
+        r2 = jnp.maximum(x2 + y2 - 2.0 * matmul(x, table.p.T), 0.0)
 
         def rd(r2c, zrc, zvc, sig):
             dr = jnp.sqrt(r2c + zrc * zrc)
@@ -152,7 +152,7 @@ class DipoleIntegrator(PathTracer):
         w = table.area * table.valid            # [K]
         ew = table.e * w[:, None]               # [K, 3]
         mo = jnp.stack([
-            (rd(r2, zr[c], zv[c], sig_tr[c]) * alpha_p[c]) @ ew[:, c]
+            matmul(rd(r2, zr[c], zv[c], sig_tr[c]) * alpha_p[c], ew[:, c])
             for c in range(3)], axis=-1)
         return mo
 

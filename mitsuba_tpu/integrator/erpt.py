@@ -12,7 +12,7 @@ Estimator (equal-deposition ERPT, Cline §5): a seed with luminance I
 spawns on average I/(e_d·M) chains of M mutations, each mutation
 depositing a fixed energy quantum e_d (in color, rgb/lum·e_d) at the
 chain's current path. Chain counts are realised by categorical
-resampling of seeds ∝ I over a fixed wavefront of chains — the TPU
+resampling of seeds ∝ I over a fixed wavefront of chains — the wavefront
 equivalent of the reference's per-seed `numChains = floor(u + I/(e_d·M))`
 loop — which makes every lane shape-static.
 

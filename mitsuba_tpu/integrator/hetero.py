@@ -83,8 +83,8 @@ class HeteroVolPathTracer(PathTracer):
                 sggx_smp = lambda a, u: sggx_mix_specular_sample(s6, a, u)
             else:
                 # majorant σ bound: λ_max(S) ≤ max Gershgorin row sum
-                # (cheap and TPU-safe; eigendecomposition doesn't lower
-                # to XLA:TPU)
+                # (cheap and branch-free; no eigendecomposition per
+                # lane)
                 smat = jnp.abs(_s_mat(s6))
                 lam_ub = jnp.max(jnp.sum(smat, axis=-1))
                 sig_max = jnp.sqrt(jnp.maximum(lam_ub, 1e-12))

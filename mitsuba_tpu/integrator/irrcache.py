@@ -7,11 +7,11 @@ sparse set of surface records and interpolated elsewhere with Ward's
 weight w_i = 1/(‖x−x_i‖/R_i + √(1−n·n_i)), where R_i is the harmonic
 mean hit distance of record i's hemisphere rays.
 
-TPU-native redesign: the reference fills an octree lazily per pixel
+Wavefront redesign: the reference fills an octree lazily per pixel
 (data-dependent insertion — hostile to fixed-shape compilation); here the
 records are placed up front by area-weighted surface sampling (the same
 trade the dipole preprocess makes vs irrproc.cpp) and the interpolation
-is a dense [N_pixels, K_records] weight matrix — an MXU contraction, no
+is a dense [N_pixels, K_records] weight matrix — a matmul contraction, no
 pointer tree. Hemisphere sampling per record mirrors irrcache.h's
 HemisphereSampler (cosine-weighted, one bounce of path radiance).
 """
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import rng
-from ..core.math import Frame, dot
+from ..core.math import Frame, dot, matmul
 from ..core.warp import square_to_cosine_hemisphere
 from ..scene.scene import SceneData
 from .common import DIM_PIXEL, offset_ray_origin, ray_mint
@@ -78,7 +78,7 @@ class IrrCacheIntegrator(PathTracer):
         inner = PathTracer(max_depth=self.indirect_depth,
                            rr_depth=10 ** 6,
                            cluster_size=self.cluster_size,
-                           accel=self.accel, families=self.families,
+                           families=self.families,
                            hide_emitters=False)
 
         def one(s, carry):
@@ -119,9 +119,9 @@ class IrrCacheIntegrator(PathTracer):
         """Ward-weighted irradiance estimate at (x, n): [N, 3]."""
         d2 = (jnp.sum(x * x, -1, keepdims=True)
               + jnp.sum(cache.p * cache.p, -1)[None, :]
-              - 2.0 * (x @ cache.p.T))
+              - 2.0 * matmul(x, cache.p.T))
         dist = jnp.sqrt(jnp.maximum(d2, 0.0))
-        ndot = jnp.clip(n @ cache.n.T, -1.0, 1.0)
+        ndot = jnp.clip(matmul(n, cache.n.T), -1.0, 1.0)
         w = 1.0 / (dist / cache.r[None, :]
                    + jnp.sqrt(jnp.maximum(1.0 - ndot, 0.0)) + 1e-4)
         # records only count within their validity domain (w > 1/κ with
@@ -129,7 +129,7 @@ class IrrCacheIntegrator(PathTracer):
         ok = (w > 2.0) & (ndot > 0.1) & cache.valid[None, :]
         w = jnp.where(ok, w, 0.0)
         wsum = jnp.sum(w, axis=-1, keepdims=True)
-        est = (w @ cache.e) / jnp.maximum(wsum, 1e-9)
+        est = matmul(w, cache.e) / jnp.maximum(wsum, 1e-9)
         have = wsum[..., 0] > 0
         return est, have
 
@@ -138,7 +138,7 @@ class IrrCacheIntegrator(PathTracer):
         from ..bsdf.bsdf import resolve_material
         from .direct import DirectIntegrator
         di = DirectIntegrator(cluster_size=self.cluster_size,
-                              accel=self.accel, families=self.families)
+                              families=self.families)
         L = di.li(scene, o, d, seed, pixel_id, sample_idx)
         its = self._intersect(scene, o, d, ray_mint(o))
         mat = resolve_material(scene, its.mat_id, its.uv, self.families)

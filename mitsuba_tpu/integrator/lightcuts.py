@@ -5,7 +5,7 @@ lightcuts/lightcuts.cpp:14, librender/{lighttree,lightcutter}.cpp:
 LightTree binary tree over VPLs + Lightcutter::evalLightcut's
 error-bounded adaptive cut).
 
-TPU-native redesign: the reference grows each pixel's cut with a
+Wavefront redesign: the reference grows each pixel's cut with a
 priority queue until the error bound drops below 2% of the estimate —
 unbounded, data-dependent work. Here every pixel gets a FIXED-size cut
 of K nodes grown by K−1 refinement steps: start at the root; each step

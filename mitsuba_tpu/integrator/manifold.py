@@ -15,11 +15,11 @@ relative IOR for refraction). The constraint is expressed in the local
 tangent frame, c_i(U) = (h_i·t_i, h_i·b_i) ∈ ℝ², and the stacked system
 c(U) = 0 over U = (u_i, v_i)_{i=1..k} is solved by damped Newton.
 
-TPU redesign vs the reference: manifold.cpp hand-derives the sparse
+Wavefront redesign vs the reference: manifold.cpp hand-derives the sparse
 block-tridiagonal Jacobian and back-substitutes one path at a time. Here
 the chain is a pure function of U, the Jacobian comes from `jax.jacfwd`
 (forward-mode over 2k ≤ 8 unknowns — one trace, no hand derivatives),
-the 2k×2k dense solve is a few MXU-sized ops, and the whole walk vmaps
+the 2k×2k dense solve is a few matmul-sized ops, and the whole walk vmaps
 over thousands of chains at once (`manifold_walk` is `vmap`/`jit`
 compatible; fixed iteration count, masked convergence — no data-dependent
 control flow).

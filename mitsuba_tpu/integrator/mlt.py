@@ -4,7 +4,7 @@ Counterpart of the reference `mlt` plugin and the libbidir mutator suite
 (ref: src/integrators/mlt/{mlt.cpp,mlt_proc.cpp}; src/libbidir/mut_bidir.cpp,
 mut_lens.cpp, mut_caustic.cpp, mut_mchain.cpp, mut_manifold.cpp;
 include/mitsuba/bidir/mutator.h:33). The reference mutates explicit
-`Path` vertex arrays; the TPU-native redesign keeps thousands of vmapped
+`Path` vertex arrays; the Wavefront redesign keeps thousands of vmapped
 chains in the *primary sample space* of the wavefront path tracer — whose
 RNG dimension layout is STATIC (integrator/common.py) — and realises each
 Veach strategy as a structured mutation of the corresponding dimension
@@ -92,7 +92,6 @@ class MLT:
     n_chains: int = 4096
     boot_mult: int = 4
     cluster_size: int = 512
-    accel: str = "auto"
     families: tuple | None = None
     # strategy mixture weights (normalised at trace time)
     w_bidir: float = 0.3
@@ -116,7 +115,7 @@ class MLT:
     def _core(self, psv):
         return _PSVPathTracer(
             max_depth=self.max_depth, rr_depth=10 ** 6,
-            cluster_size=self.cluster_size, accel=self.accel,
+            cluster_size=self.cluster_size,
             families=self.families, psv=psv)
 
     def _eval(self, scene, camera, width, height, psv):

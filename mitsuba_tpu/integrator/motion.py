@@ -3,7 +3,7 @@
 Counterpart of the reference's motion-blur machinery — AnimatedTransform
 sensors/shapes (track.h), the `deformable` 4D-kd-tree shape and sensor
 shutter sampling (sensor.h time sampling; the `motion` integrator
-visualises it). TPU redesign rationale in core/track.py: per-ray
+visualises it). Wavefront redesign rationale in core/track.py: per-ray
 continuous time would make every intersection data-dependent on t, so
 the shutter is stratified into n_t compile-time slices; each slice is an
 ordinary static render of the scene evaluated at that time, and the film

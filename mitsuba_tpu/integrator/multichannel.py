@@ -5,7 +5,7 @@ misc/multichannel.cpp): groups N sub-integrators and invokes them *for the
 same pixel samples*; each result lands in its own channel group of one
 multi-channel EXR (e.g. path RGB + shNormal RGB + distance Y).
 
-TPU-native design: one jitted wavefront pass generates the camera rays
+Wavefront design: one jitted wavefront pass generates the camera rays
 once, evaluates every child's `li` on them, and filter-splats each result
 into its own film accumulator — the children share rays exactly as the
 reference shares the per-pixel sampler stream.  Like the reference, no

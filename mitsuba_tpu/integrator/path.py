@@ -1,11 +1,11 @@
 """Unidirectional path tracer with NEE + MIS + Russian roulette.
 
-TPU-native re-design of the reference MIPathTracer (ref: src/integrators/
+Wavefront re-design of the reference MIPathTracer (ref: src/integrators/
 path/path.cpp:120-295; exact semantics in SURVEY Appendix A.2): the per-ray
 `while` loop becomes a `lax.scan` over bounce index carrying masked wavefront
 state — position, direction, throughput, accumulated radiance, the previous
 BSDF pdf for MIS, and the RR eta scale. No recursion, no divergence: dead
-lanes ride along masked (compaction variants live in the Pallas backend).
+lanes ride along masked (compacted each bounce on the trace-kernel path).
 
 Defaults match the reference: rr_depth=5, RR continue prob
 q = min(max(throughput)·η², 0.95) (path.cpp:278-289); MIS = power heuristic;
@@ -33,34 +33,39 @@ from .common import (DIM_BSDF_U1, DIM_BSDF_U2, DIM_NEE_POS, DIM_NEE_SEL,
                      ray_mint)
 
 
+# The intersector each JAX platform runs: the fused Triton trace kernel on
+# the GPU, the XLA matmul intersector on the CPU (tests, oracles). There
+# is no fallback between them.
+TRACE_PATHS = {"gpu": "kernel", "cpu": "dense"}
+
+# Scenes with at least this many trace-kernel clusters get their live
+# lanes sorted by (origin cluster, direction octant) every bounce.
+SORT_MIN_CLUSTERS = 32
+
+
+def trace_path(platform: str | None = None) -> str:
+    """"kernel" or "dense" for `platform` (default: JAX's backend)."""
+    platform = platform or jax.default_backend()
+    try:
+        return TRACE_PATHS[platform]
+    except KeyError:
+        raise ValueError(f"no intersector for platform {platform!r}; "
+                         f"supported: {sorted(TRACE_PATHS)}") from None
+
+
 @dataclass(frozen=True)
 class PathTracer:
     """Config mirroring MonteCarloIntegrator (ref: integrator.h:448-474).
 
-    accel: "dense" = XLA matmul intersector (portable, differentiable-
-    friendly, CPU tests); "pallas" = fused VMEM trace kernel (TPU hot path,
-    ~10-40× faster); "auto" picks pallas on TPU backends.
+    The intersector follows the platform (`trace_path`); on the kernel
+    path the wavefront is compacted every bounce so dead lanes form
+    all-dead ray blocks that the kernel skips, and on scenes of at least
+    SORT_MIN_CLUSTERS clusters the live lanes are sorted for coherence.
     """
     max_depth: int = 8          # vertices incl. camera; -1 (∞) not supported
     rr_depth: int = 5
     hide_emitters: bool = False
     cluster_size: int = 512
-    accel: str = "auto"
-    gate_depth: int = 5             # prefix-gate halvings (N..N/2^depth);
-                                    # 0 disables gating. TPU sweep on the
-                                    # GGX+envmap scene: 0 → 1.72, 3 → 3.74,
-                                    # 5 → 4.05 M rays/s (compile 63/110/124s)
-    sort_rays: str = "auto"         # "on"/"off"/"auto": order live lanes
-                                    # by (origin cluster, direction octant)
-                                    # inside the compaction permutation so
-                                    # trace blocks are spatially coherent
-                                    # and the per-block cluster-AABB gate
-                                    # fires; auto = on for ≥32 clusters
-    fused_shade: str = "off"        # "on"/"off"/"auto": run the shading
-                                    # tail (NEE eval → shadow trace → BSDF
-                                    # sample → RR) as one Pallas kernel
-                                    # (accel/shade_kernel.py); auto = on
-                                    # when the scene's families fit
     families: tuple | None = None   # static BSDF-family subset (dispatch)
     sampler: str = "independent"    # sampler/sampler.py kind
     spp: int = 0                    # strata count for stratified/ld samplers
@@ -81,32 +86,28 @@ class PathTracer:
             np.asarray(scene.mat_type))))
         return dataclasses.replace(self, families=fams)
 
-    def _use_pallas(self):
-        if self.accel == "auto":
-            return jax.default_backend() not in ("cpu",)
-        return self.accel == "pallas"
+    def _use_kernel(self):
+        return trace_path() == "kernel"
 
     def _intersect(self, scene, o, d, mint, live=None):
-        if self._use_pallas():
-            from ..accel.pallas_trace import pallas_intersect
-            maxt = jnp.full(o.shape[:1], 1e30)
-            return pallas_intersect(scene, o, d, mint, maxt, live=live)
+        if self._use_kernel():
+            from ..accel.pallas_trace import kernel_intersect
+            return kernel_intersect(scene, o, d, mint, live=live)
         return ray_intersect(scene, o, d, mint=mint,
                              cluster_size=self.cluster_size)
 
     def _occluded(self, scene, o, d, mint, maxt, live=None):
-        if self._use_pallas():
-            from ..accel.pallas_trace import pallas_occluded
-            return pallas_occluded(scene, o, d, mint, maxt, live=live)
+        if self._use_kernel():
+            from ..accel.pallas_trace import kernel_occluded
+            return kernel_occluded(scene, o, d, mint, maxt, live=live)
         return ray_test(scene, o, d, mint, maxt,
                         cluster_size=self.cluster_size)
 
-    def _shade_xla(self, scene, its, frame, mat, wi_local, d, throughput,
-                   L, ds, hit, active, nee_allowed, depth, eta_scale,
-                   seed, pixel_id, sample_idx, bounce, compact, orig):
-        """XLA shading tail: NEE eval + shadow trace + MIS + BSDF sample
-        + RR (the general path; the fused Pallas kernel replaces this for
-        supported family subsets)."""
+    def _shade(self, scene, its, frame, mat, wi_local, d, throughput,
+               L, ds, hit, active, nee_allowed, depth, eta_scale,
+               seed, pixel_id, sample_idx, bounce, compact, orig):
+        """Shading tail: NEE eval + shadow trace + MIS + BSDF sample
+        + RR."""
         wo_nee = Frame.to_local(frame, ds.d)
         f_nee = eval_bsdf_ex(mat, wi_local, wo_nee, self.families)
         contributes = nee_allowed & (ds.pdf > 0) & (
@@ -184,46 +185,18 @@ class PathTracer:
         tracing, integrator/footprint.py)."""
         n = o.shape[0]
         # Per-bounce lane compaction: dead lanes pack into the tail each
-        # bounce (O(N) cumsum partition; pixel/sample ids ride along so
-        # the counter RNG streams are untouched), and the fused trace
-        # kernels skip all-dead ray blocks. Worth it once per-lane trace
-        # cost dwarfs the ~60-float permutation; tiny scenes and the
-        # dense/CPU path keep the plain loop. This is the wavefront
-        # answer to the persistent megakernel's path regeneration.
-        compact = self._use_pallas() and scene.n_tris >= 512
-        tc_pallas = scene.woop_clusters.shape[1] // 3 \
-            if scene.woop_clusters is not None else 64
-        n_clusters = scene.woop_clusters.shape[0] \
-            if scene.woop_clusters is not None else 1
+        # bounce (O(N) partition; pixel/sample ids ride along so the
+        # counter RNG streams are untouched), and the trace kernel skips
+        # all-dead ray blocks. The dense path keeps the plain loop.
+        compact = self._use_kernel()
+        tc_trace = scene.trace_woop.shape[1] // scene.trace_box.shape[1]
         sort_lanes = compact and (
-            self.sort_rays == "on"
-            or (self.sort_rays == "auto" and n_clusters >= 32))
-        if self.fused_shade == "off" or not self._use_pallas():
-            use_fused_shade = False
-        else:
-            from ..accel.shade_kernel import supports
-            use_fused_shade = supports(scene, self.families, self.sampler)
-            if self.fused_shade == "on":
-                assert use_fused_shade, \
-                    "fused_shade=on but scene/config unsupported"
-        # Prefix gating (on top of compaction): live lanes form a prefix,
-        # so the whole bounce body only needs to run on the smallest
-        # power-of-two prefix covering them — a lax.switch picks between
-        # N, N/2, N/4, N/8 wide instances of the body and the dead tail
-        # rides through untouched. The trace kernels already skip
-        # all-dead blocks; this extends the saving to the XLA shading
-        # stage (frames, NEE, BSDF math, the compaction gather itself),
-        # which otherwise runs on every lane at every bounce. Values are
-        # unchanged: the same elementwise ops on the same live lanes.
-        gate_sizes = [n]
-        if compact and n >= (1 << 16):
-            gate_sizes = [n >> k for k in range(self.gate_depth + 1)
-                          if (n >> k) > 0]
+            scene.trace_box.shape[1] >= SORT_MIN_CLUSTERS)
         pix0 = jnp.broadcast_to(jnp.asarray(pixel_id, jnp.uint32), (n,))
         samp0 = jnp.broadcast_to(
             jnp.asarray(sample_idx, jnp.uint32), (n,))
 
-        def step(n_sub, args, bounce):
+        def step(args, bounce):
             (o, d, throughput, L, active, eta_scale, prev_pdf,
              prev_delta, pixel_id, sample_idx, orig, n_rays) = args
 
@@ -257,10 +230,9 @@ class PathTracer:
 
             # ---- set up shading frame ----------------------------------
             # (tex_lod is only consulted at bounce 0, before any
-            # compaction has reordered lanes, so the prefix slice is
-            # positionally correct)
+            # compaction has reordered lanes)
             lod0 = None if tex_lod is None else \
-                jnp.where(bounce == 0, tex_lod[:n_sub], 0.0)
+                jnp.where(bounce == 0, tex_lod, 0.0)
             mat = resolve_material(scene, its.mat_id, its.uv,
                                    self.families, lod_extent=lod0)
             frame = Frame.from_normal(its.ns)
@@ -279,40 +251,25 @@ class PathTracer:
             n_rays = (n_rays + jnp.sum(active.astype(jnp.uint32))
                       + jnp.sum((nee_allowed & (ds.pdf > 0))
                                 .astype(jnp.uint32)))
-            if use_fused_shade:
-                # one Pallas program for the whole shading tail: NEE
-                # BSDF eval, shadow trace, MIS, BSDF sampling, RR
-                # (accel/shade_kernel.py; RNG dims identical to below)
-                from ..accel.shade_kernel import fused_shade
-                (o_next, d_sel, tp_sel, L, alive, prev_pdf_n,
-                 prev_delta_n, eta_scale_next) = fused_shade(
-                    scene, its, frame, mat, d, throughput, L, ds,
-                    active, eta_scale, seed, pixel_id, sample_idx,
-                    bounce, self.families, self.rr_depth,
-                    self.max_depth)
-                out = (o_next, d_sel, tp_sel, L, alive, eta_scale_next,
-                       prev_pdf_n, prev_delta_n, pixel_id, sample_idx,
-                       orig)
-            else:
-                out = self._shade_xla(
-                    scene, its, frame, mat, wi_local, d, throughput, L,
-                    ds, hit, active, nee_allowed, depth, eta_scale,
-                    seed, pixel_id, sample_idx, bounce, compact, orig)
+            out = self._shade(
+                scene, its, frame, mat, wi_local, d, throughput, L,
+                ds, hit, active, nee_allowed, depth, eta_scale,
+                seed, pixel_id, sample_idx, bounce, compact, orig)
             if compact:
                 if sort_lanes:
                     # coherence sort: live lanes ordered by (origin
                     # cluster, direction octant), dead lanes to the tail
-                    # (keeps the prefix-gate invariant). Cluster ids are
+                    # as in the partition. Cluster ids are
                     # Morton-ordered (builder), so nearby ids = nearby
                     # space: consecutive trace blocks then see rays with
-                    # tight origins, and the fused kernel's per-block
+                    # tight origins, and the trace kernel's per-block
                     # cluster-AABB slab gate can actually reject
                     # clusters (incoherent blocks almost never can).
                     # Same estimator, same per-lane values — the RNG is
                     # keyed by (pixel, sample) ids that ride along.
                     alive_o = out[4]
                     clus = (jnp.where(alive_o, its.tri_id, 0)
-                            // tc_pallas).astype(jnp.uint32)
+                            // tc_trace).astype(jnp.uint32)
                     octant = ((out[1][:, 0] < 0).astype(jnp.uint32) * 4
                               + (out[1][:, 1] < 0).astype(jnp.uint32) * 2
                               + (out[1][:, 2] < 0).astype(jnp.uint32))
@@ -326,14 +283,12 @@ class PathTracer:
                     dead_rank = jnp.cumsum(1 - ai) - (1 - ai)
                     dest = jnp.where(out[4], live_rank,
                                      jnp.sum(ai) + dead_rank)
-                    src_idx = jnp.zeros((n_sub,), jnp.int32).at[dest].set(
-                        jnp.arange(n_sub, dtype=jnp.int32))
+                    src_idx = jnp.zeros((n,), jnp.int32).at[dest].set(
+                        jnp.arange(n, dtype=jnp.int32))
                 # ONE [N, 19] row gather instead of 11 array gathers:
-                # TPU gather cost is per-INDEX, not per-byte (profiled
-                # ~190 ms per [1M] gather regardless of row width), so
-                # packing the whole carry into one matrix cuts the
-                # permutation cost ~7x. Integer lanes ride as bitcast
-                # f32 (gathers move bits; the round-trip is exact).
+                # one index pass moves the whole carry. Integer lanes
+                # ride as bitcast f32 (gathers move bits; the round-trip
+                # is exact).
                 as_f = lambda x: jax.lax.bitcast_convert_type(
                     x, jnp.float32)[..., None]
                 packed = jnp.concatenate([
@@ -356,29 +311,7 @@ class PathTracer:
             return out + (n_rays,)
 
         def bounce_body(carry, bounce):
-            if len(gate_sizes) == 1:
-                return step(n, carry, bounce), None
-            # live lanes are a prefix (invariant: the previous bounce's
-            # partition covered every live lane); pick the narrowest
-            # instance wide enough for all of them
-            live = jnp.sum(carry[4].astype(jnp.int32))
-            idx = jnp.int32(0)
-            for nk in gate_sizes[1:]:
-                idx = idx + (live <= nk).astype(jnp.int32)
-
-            def make_branch(nk):
-                def branch(c):
-                    pre = tuple(a[:nk] for a in c[:11]) + (c[11],)
-                    out = step(nk, pre, bounce)
-                    if nk == n:
-                        return out
-                    return tuple(
-                        jnp.concatenate([out[i], c[i][nk:]], axis=0)
-                        for i in range(11)) + (out[11],)
-                return branch
-
-            return jax.lax.switch(
-                idx, [make_branch(nk) for nk in gate_sizes], carry), None
+            return step(carry, bounce), None
 
         n_bounces = self.max_depth if self.max_depth > 0 else 32
         # Derive carry inits from `o` so they inherit its varying-axes

@@ -3,7 +3,7 @@ and progressive (PPM/SPPM-class) refinement.
 
 Counterpart of the reference's photon-map family (ref: src/integrators/
 photonmapper/{photonmapper,ppm,sppm}.cpp over render/photonmap.h:34,
-particleproc.h:128, gatherproc.h:35). TPU-native redesign:
+particleproc.h:128, gatherproc.h:35). Wavefront redesign:
 
   * the balanced point kd-tree with kNN gather (photonmap.h, photon.h:57)
     becomes a **sorted spatial hash grid**: photons are hashed to cells of
@@ -336,7 +336,7 @@ def render_progressive(scene: SceneData, camera, film, pm: PhotonMapper,
     for i in range(n_passes):
         pm_i = PhotonMapper(
             max_depth=pm.max_depth, rr_depth=pm.rr_depth,
-            families=pm.families, accel=pm.accel,
+            families=pm.families,
             n_photons=pm.n_photons, gather_radius=float(np.sqrt(r2)),
             photon_depth=pm.photon_depth,
             specular_chain=pm.specular_chain)

@@ -3,7 +3,7 @@
 Counterpart of the reference `pssmlt` plugin (ref: src/integrators/pssmlt/
 {pssmlt.cpp,pssmlt_sampler.cpp,pssmlt_proc.cpp}; SURVEY.md §3.5). The
 reference runs one Markov chain per scheduler work unit, each wrapping a
-lazy `PSSMLTSampler` around `PathSampler::sampleSplats`. The TPU-native
+lazy `PSSMLTSampler` around `PathSampler::sampleSplats`. The wavefront
 redesign runs THOUSANDS of independent chains as one wavefront:
 
 - the primary sample space is materialised as a dense tensor
@@ -96,7 +96,6 @@ class PSSMLT:
     n_chains: int = 4096
     boot_mult: int = 4          # bootstrap candidates per chain
     cluster_size: int = 512
-    accel: str = "auto"
     families: tuple | None = None
 
     @property
@@ -116,7 +115,7 @@ class PSSMLT:
     def _core(self, psv):
         return _PSVPathTracer(
             max_depth=self.max_depth, rr_depth=10 ** 6,
-            cluster_size=self.cluster_size, accel=self.accel,
+            cluster_size=self.cluster_size,
             families=self.families, psv=psv)
 
     # ------------------------------------------------------------------

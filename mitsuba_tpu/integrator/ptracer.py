@@ -5,7 +5,7 @@ ptracer/{ptracer.cpp,ptracer_proc.cpp} over the ParticleTracer infra,
 render/particleproc.h:128): particles start on emitters carrying power
 throughput, random-walk through the scene, and every vertex connects to the
 camera through a visibility ray; contributions splat to the projected
-pixel. TPU shape: one wavefront of N particles, `lax.scan` over bounces,
+pixel. Wavefront shape: one wavefront of N particles, `lax.scan` over bounces,
 camera connections as batched projections (sensor.project) + shadow traces,
 film accumulation via scatter-add.
 

@@ -22,7 +22,7 @@ attenuated by exp(-sigma_t·thickness)), and `ss_depth` internal
 (total/Fresnel) reflection bounces, each adding another single-scatter
 light connection.
 
-TPU-native design: no recursion — the internal-reflection chain is an
+Wavefront design: no recursion — the internal-reflection chain is an
 unrolled masked wavefront loop (depth is ≤ a few), and the two surface
 Li() continuations are evaluated as full secondary wavefronts through the
 base path tracer. All lanes march in lock-step with validity masks.

@@ -1,6 +1,6 @@
 """Volumetric path tracer: surfaces + a global homogeneous medium.
 
-TPU-native counterpart of the reference's `volpath` integrator (ref: src/
+Wavefront counterpart of the reference's `volpath` integrator (ref: src/
 integrators/path/volpath.cpp:104-181; SURVEY Appendix A.7): per bounce the
 wavefront first samples a medium interaction against the surface hit
 distance (media/homogeneous.py balance strategy), then each lane takes the

@@ -6,7 +6,7 @@ walks a BVH fitted over per-photon spheres and accumulates
 K2(d⊥²/r²)/r² · Φ · phase · Tr along the camera ray; photonmapper.cpp
 shoots the volume map via ParticleTracer::handleMediumInteraction).
 
-TPU-native redesign: no photon-BVH — the beam query is a dense
+Wavefront redesign: no photon-BVH — the beam query is a dense
 [rays × photon-chunk] projection contraction streamed with `lax.scan`
 over fixed-size photon blocks (the same octree→dense-matmul move as
 integrator/dipole.py). Each photon uses one global radius; the Silverman

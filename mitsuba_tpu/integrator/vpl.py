@@ -5,7 +5,7 @@ src/integrators/vpl/vpl.cpp, src/librender/vpl.cpp:25-241): random-walk
 particles from the emitters deposit virtual point lights; the image is lit
 by summing every VPL's contribution with a clamped geometry term.
 
-TPU-native shape: VPL generation is one particle wavefront (`lax.scan`
+Wavefront shape: VPL generation is one particle wavefront (`lax.scan`
 over bounces, every vertex stored — the fixed-size analog of the
 reference's std::deque of VPLs); rendering is one camera-hit wavefront
 followed by a `lax.scan` over VPLs, each step shading ALL pixels against

@@ -1,6 +1,6 @@
 """Multi-channel volume "bundle" lookups for multi-lobe SGGX media.
 
-TPU-native counterpart of winmad's `VolumeDataSourceEx::lookupBundle`
+Wavefront counterpart of winmad's `VolumeDataSourceEx::lookupBundle`
 (ref: include/mitsuba/render/volume2.h:28, src/volume/gridvol2_simple.cpp)
 as consumed by the cluster-indexed multi-lobe media
 `heterogeneous2/heterogeneous3` (ref: src/medium/heterogeneous2.cpp:94-104,

@@ -3,9 +3,9 @@
 Counterpart of the reference's heterogeneous medium (ref: src/medium/
 heterogeneous.cpp:59,175-290 — delta tracking with a max-density majorant)
 and gridvolume data source (src/volume/gridvolume.cpp, trilinear lookups).
-TPU shape: the tracking loop is a bounded `lax.fori_loop` with masked lanes
+Wavefront shape: the tracking loop is a bounded `lax.fori_loop` with masked lanes
 (every lane does MAX_STEPS candidate flights; terminated lanes ride along),
-and density lookups are trilinear fetches from a [Z, Y, X] grid in HBM.
+and density lookups are trilinear fetches from a [Z, Y, X] grid in device memory.
 
 Transmittance along shadow rays uses the ratio-tracking estimator
 (unbiased, low-variance analog of the reference's residual transmittance

@@ -1,6 +1,6 @@
 """Shell-mapped volumes: tetrahedral shell mesh -> texture-space lookup.
 
-TPU-native counterpart of the reference's `shellmap`/`shellmap2` volume
+Wavefront counterpart of the reference's `shellmap`/`shellmap2` volume
 data sources (ref: src/volume/shellmap.cpp:31-130, shellmap2.cpp) and the
 `TetrahedronMesh` point-location structure (ref: src/volume/tetra.h:52-230).
 A shell is a tetrahedralized thick layer wrapped around a base surface;
@@ -13,7 +13,7 @@ winmad's appearance-prefiltering pipelines.
 
 The reference locates points with a per-ray BVH walk over tetrahedra
 (tetra.h:311 `_node_type`, recursive `lookup`). That is pointer chasing —
-the TPU design replaces it with a **uniform grid over the shell's AABB**:
+the wavefront design replaces it with a **uniform grid over the shell's AABB**:
 each cell stores a fixed-width padded list of candidate tetrahedra, and a
 lookup is two gathers plus K batched 3x3 mat-vecs (barycentric solves),
 fully branchless and vmappable across a wavefront of sample points.

@@ -1,6 +1,6 @@
 """Block-sparse volume grids: hierarchical grids + residency cache.
 
-TPU-native counterpart of the reference's out-of-core volume plugins:
+Wavefront counterpart of the reference's out-of-core volume plugins:
 
 - `hgridvolume` (ref: src/volume/hgridvolume.cpp:70-115) — a two-layer
   hierarchical grid: a dictionary file (little-endian: 6×f32 bbox,
@@ -11,8 +11,8 @@ TPU-native counterpart of the reference's out-of-core volume plugins:
   keeps only the working set of a huge grid in RAM.
 
 The reference resolves both with per-lookup pointer chasing + mutexed
-LRU eviction. On TPU the equivalent is a *page table*: a dense int32
-block-index grid plus a packed array of resident blocks in HBM. Lookups
+LRU eviction. On an accelerator the equivalent is a *page table*: a dense int32
+block-index grid plus a packed array of resident blocks in device memory. Lookups
 are two chained gathers (page, then voxels) — branchless and
 O(occupied) memory instead of O(dense). The packed residency set IS the
 cache; empty/evicted pages alias page 0, a shared all-zero block.

@@ -1,9 +1,9 @@
 // Native runtime components for mitsuba_tpu.
 //
 // The reference keeps its hot host-side paths in C++ (mesh parsing in
-// src/shapes/obj.cpp, image codecs in src/libcore/bitmap.cpp); the TPU
-// build does the same for the host-side loaders that feed scene
-// compilation — the device compute path stays JAX/XLA/Pallas. Exposed
+// src/shapes/obj.cpp, image codecs in src/libcore/bitmap.cpp); this
+// renderer does the same for the host-side loaders that feed scene
+// compilation — the device compute path stays JAX/XLA. Exposed
 // through a small C ABI consumed by ctypes (mitsuba_tpu/native/__init__.py)
 // with pure-Python fallbacks when no compiler is available.
 //

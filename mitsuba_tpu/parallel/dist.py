@@ -99,7 +99,7 @@ def render_grad_sharded(scene: SceneData, camera, film: Film, integrator,
     → gradients w.r.t. selected scene leaves, psum-reduced over the mesh.
 
     This is the flagship multi-chip path for dryrun_multichip: real ray
-    sharding + replicated params + gradient all-reduce over ICI.
+    sharding + replicated params + gradient all-reduce over the interconnect.
     """
     if loss_fn is None:
         loss_fn = lambda img: jnp.mean(img)

@@ -318,7 +318,7 @@ def mixture_hg_sample(w1, g1, g2, wi, u2, u1):
 # Flake normals follow D(m) ∝ exp(-cos²θ/(2σ²)) concentrated in the plane
 # perpendicular to the local fiber axis. The reference precomputes σT
 # series expansions offline and samples cosθ with a Brent solver inside a
-# rejection loop; TPU-native replacements:
+# rejection loop; wavefront replacements:
 #   * σT(cosθ) = ∫ D(m)|ω·m| dm is tabulated by numpy quadrature at
 #     construction (fiber_sigma_t_table) and linearly interpolated;
 #   * cosθ sampling inverts the erf CDF in closed form via erfinv

@@ -269,10 +269,6 @@ class SceneDesc:
     envmap: Optional[EnvmapLight] = None
     medium: Optional[Medium] = None
     textures: list = field(default_factory=list)   # numpy [H, W, 3] images
-    # texture slot → procedural provenance ("checker"/"grid", params):
-    # recorded by add_texture from texture.py ProcImage so the
-    # megakernel can compile the analytic form (accel/megakernel.py)
-    tex_procs: dict = field(default_factory=dict)
     bsdf_tables: list = field(default_factory=list)  # [n_ti,n_to,n_phi,3]
     weave_patterns: list = field(default_factory=list)  # irawan WeavePattern
 
@@ -288,14 +284,9 @@ class SceneDesc:
 
     def add_texture(self, image) -> int:
         """Register a bitmap texture; returns its id for Material
-        albedo_texture/roughness_texture slots. Procedural provenance
-        (texture.py ProcImage.proc) is kept in tex_procs."""
-        proc = getattr(image, "proc", None)
+        albedo_texture/roughness_texture slots."""
         self.textures.append(np.asarray(image, np.float32))
-        slot = len(self.textures) - 1
-        if proc is not None:
-            self.tex_procs[slot] = proc
-        return slot
+        return len(self.textures) - 1
 
     def add_shape(self, mesh, to_world=None, material=0, radiance=None,
                   sampling_weight=1.0, flip_normals=False):
@@ -322,9 +313,10 @@ def _spread3(x):
 def morton_order(p0, e1, e2) -> np.ndarray:
     """Stable permutation sorting triangles along a 30-bit Morton curve
     of their centroids. Consecutive tc-sized trace clusters then cover
-    spatially compact regions, which is what makes the per-cluster AABB
-    culling in accel/pallas_trace.py effective — the LBVH-style leaf
-    ordering of SURVEY §7, without interior pointer nodes."""
+    spatially compact regions, which is what makes the trace kernel's
+    per-cluster AABB culling (accel/pallas_trace.py) effective — the
+    LBVH-style leaf ordering of SURVEY §7, without interior pointer
+    nodes."""
     c = np.asarray(p0, np.float64) + (np.asarray(e1, np.float64)
                                       + np.asarray(e2, np.float64)) / 3.0
     lo = c.min(0)
@@ -443,20 +435,10 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512) -> S.SceneData:
         tri_area = np.concatenate([tri_area, np.zeros(pad)])
 
     woop_o, woop_d = build_woop(p0, e1, e2)
-    from ..accel.pallas_trace import (ORDER_MAX_CLUSTERS, PALLAS_TC,
-                                      build_cluster_aabbs,
-                                      build_cluster_order,
-                                      build_woop_clustered)
-    woop_clusters = build_woop_clustered(woop_o, PALLAS_TC)
-    # per-cluster AABBs over REAL triangles only (the far-away pads
-    # would inflate the last cluster's bound into uselessness)
-    cluster_aabb = build_cluster_aabbs(p0[:n_tris], e1[:n_tris],
-                                       e2[:n_tris], PALLAS_TC,
-                                       woop_clusters.shape[0])
-    if 8 <= woop_clusters.shape[0] <= ORDER_MAX_CLUSTERS:
-        cl_meta, cl_order, cl_odist = build_cluster_order(cluster_aabb)
-    else:
-        cl_meta = cl_order = cl_odist = None
+    # kernel layout over REAL triangles only (the far-away pads would
+    # inflate the last cluster's bound into uselessness)
+    from ..accel.pallas_trace import build_trace_tables
+    trace_woop, trace_box = build_trace_tables(woop_o, p0, e1, e2, n_tris)
 
     # packed attribute rows: one gather fetches the whole hit record
     n_tp = len(p0)
@@ -637,7 +619,7 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512) -> S.SceneData:
         vuv=f32(vuv), tri_mat=i32(tri_mat), tri_em=i32(tri_em),
         tri_area=f32(tri_area),
         woop_o=jnp.asarray(woop_o), woop_d=jnp.asarray(woop_d),
-        woop_clusters=jnp.asarray(woop_clusters),
+        trace_woop=jnp.asarray(trace_woop), trace_box=jnp.asarray(trace_box),
         tri_attr=jnp.asarray(tri_attr),
         mat_type=i32(np.array(mat_type)),
         mat_params=f32(np.stack(mat_params)),
@@ -659,11 +641,6 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512) -> S.SceneData:
                         else np.ones((1, 1))),
         env_alias=(f32(env_tables["env_alias"]) if env_tables
                    else None),
-        cluster_aabb=f32(cluster_aabb),
-        cluster_meta=None if cl_meta is None else f32(cl_meta),
-        cluster_order=None if cl_order is None else
-        jnp.asarray(cl_order),
-        cluster_odist=None if cl_odist is None else f32(cl_odist),
         med_sigma_t=f32(med_sigma_t), med_albedo=f32(med_albedo),
         med_g=f32(med_g), med_bound=f32(med_bound),
         has_medium=jnp.asarray(has_medium),

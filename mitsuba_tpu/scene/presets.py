@@ -93,3 +93,36 @@ def cornell_camera(width=256, height=256, fov=39.0):
                           up=[0, 1, 0])
     return PerspectiveCamera(width=width, height=height, fov_x=fov,
                              to_world=to_world)
+
+
+def noise_terrain(res: int = 225, seed: int = 0,
+                  amplitude: float = 0.35) -> SceneDesc:
+    """fBm heightfield over [-1, 1]² — 2·(res-1)² triangles, 100,352 at
+    the default res — under a small area light: the many-triangle trace
+    workload. `seed` shifts the noise domain, so each seed is another
+    terrain."""
+    import jax.numpy as jnp
+
+    from ..core.noise import fbm
+    from .shapes import heightfield
+    shift = np.random.default_rng(seed).uniform(0.0, 256.0, 3)
+    g = np.linspace(0.0, 4.0, res)
+    xx, yy = np.meshgrid(g + shift[0], g + shift[1], indexing="xy")
+    p = np.stack([xx, yy, np.full_like(xx, shift[2])], axis=-1)
+    h = amplitude * np.asarray(fbm(jnp.asarray(p, jnp.float32), octaves=5))
+    d = SceneDesc()
+    ground = d.add_material(kind="diffuse", albedo=(0.5, 0.45, 0.4))
+    d.add_shape(heightfield(h), material=ground)
+    d.add_shape(_quad([-0.3, -0.3, 1.5], [-0.3, 0.3, 1.5],
+                      [0.3, 0.3, 1.5], [0.3, -0.3, 1.5]),
+                material=ground, radiance=(20.0, 20.0, 20.0))
+    return d
+
+
+def terrain_camera(width=256, height=256, fov=45.0):
+    """Oblique view of noise_terrain from above its -y edge."""
+    from ..sensor.sensor import PerspectiveCamera
+    to_world = tf.look_at(origin=[0.0, -2.2, 1.4], target=[0.0, 0.0, 0.0],
+                          up=[0, 0, 1])
+    return PerspectiveCamera(width=width, height=height, fov_x=fov,
+                             to_world=to_world)

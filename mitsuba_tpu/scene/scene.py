@@ -1,11 +1,11 @@
-"""Compiled scene representation: flat, HBM-resident structure-of-arrays.
+"""Compiled scene representation: flat, device-resident structure-of-arrays.
 
-This is the TPU-native inversion of the reference's ref-counted object graph
+This is the wavefront inversion of the reference's ref-counted object graph
 rooted at Scene (ref: include/mitsuba/render/scene.h:49): scene compilation
 (builder.py) bakes every shape into a world-space triangle soup, every BSDF
 into a row of a parameter table, every emitter into a row of emitter tables,
 and precomputes the Woop affine transforms that make ray-triangle
-intersection a pair of MXU matmuls (accel/dense.py). The whole scene is a
+intersection a pair of matmuls (or the fused trace kernel, accel/pallas_trace.py) (accel/dense.py). The whole scene is a
 pytree — it flows through jit/pjit/shard_map and is replicated (or sharded)
 with jax.sharding like any other array data (SURVEY.md §2.5 "read-only
 shared state").
@@ -121,7 +121,10 @@ class SceneData(NamedTuple):
     # -- Woop-packed intersection transforms (accel/dense.py) ------------
     woop_o: jnp.ndarray     # [4, 3T] origin transform (affine, homogeneous)
     woop_d: jnp.ndarray     # [3, 3T] direction transform (linear)
-    woop_clusters: jnp.ndarray  # [C, 3*TC, 4] pallas kernel layout
+    # trace-kernel layout of the real triangles (accel/pallas_trace.py
+    # build_trace_tables): Woop rows [12, C·TC] and cluster AABBs [8, C]
+    trace_woop: jnp.ndarray
+    trace_box: jnp.ndarray
     # packed per-triangle attribute rows for single-gather hit records:
     # [T, 24] = ng(0:3) vn(3:12) vuv(12:18) mat(18) em(19) pad(20:24)
     tri_attr: jnp.ndarray
@@ -170,19 +173,6 @@ class SceneData(NamedTuple):
     # (emitter/envmap.py): O(1) texel pick — 1 packed row gather —
     # replacing the O(W) per-lane column-CDF scan. None ⇒ CDF path.
     env_alias: jnp.ndarray = None      # [H*W, 2]: accept prob, alias id
-    # per-trace-cluster world AABBs [C, 8] (min xyz, max xyz, pad):
-    # the fused trace kernel slab-tests each cluster against the ray
-    # block and skips clusters no ray can enter (accel/pallas_trace.py).
-    # None ⇒ no culling (hand-built SceneData in old tests).
-    cluster_aabb: jnp.ndarray = None
-    # front-to-back traversal tables (accel/pallas_trace.py
-    # build_cluster_order): per-cluster centers/radii, per-cluster
-    # near-to-far cluster order + distances. Built when the cluster
-    # count fits the SMEM budget (≤ ORDER_MAX_CLUSTERS); None disables
-    # ordered early-exit traversal.
-    cluster_meta: jnp.ndarray = None     # [C, 8] f32
-    cluster_order: jnp.ndarray = None    # [C, C] i32
-    cluster_odist: jnp.ndarray = None    # [C, C] f32
 
     @property
     def n_tris(self):

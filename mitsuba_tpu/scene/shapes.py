@@ -1,10 +1,10 @@
 """Host-side analytic shape → triangle mesh generators.
 
 Counterparts of the reference's shape plugins (ref: src/shapes/{rectangle,
-cube,sphere,disk,cylinder}.cpp). On TPU every shape is compiled to triangles
+cube,sphere,disk,cylinder}.cpp). Every shape is compiled to triangles
 at scene-build time: analytic per-ray intersections (sphere quadratics etc.)
 would fragment the wavefront; a tessellated sphere with interpolated shading
-normals feeds the same MXU intersector as everything else.
+normals feeds the same triangle intersector as everything else.
 """
 from __future__ import annotations
 
@@ -157,7 +157,7 @@ def hair(control_points: np.ndarray, first_vertex: np.ndarray,
          radius: float = 0.025, sides: int = 4) -> Mesh:
     """Hair/fiber geometry: polyline strands tessellated into generalized
     cylinders (ref: src/shapes/hair.cpp + hair.h builds a kd-tree over
-    analytic curve segments; the TPU build tessellates each segment into
+    analytic curve segments; this renderer tessellates each segment into
     a `sides`-gon tube so fibers ride the same triangle wavefront —
     radius and segment connectivity semantics match the plugin's
     `radius` property and .hair file format).
@@ -292,7 +292,7 @@ class DeformableMesh:
     """Keyframed vertex animation (ref: src/shapes/deformable.cpp:32-300,
     SpaceTimeKDTree). The reference builds a 4D space-time SAH kd-tree
     and lerps the two bracketing keyframes' vertex positions per ray
-    time (deformable.cpp:247-270). TPU redesign: per-ray time would make
+    time (deformable.cpp:247-270). Wavefront redesign: per-ray time would make
     every intersection data-dependent on t, so the mesh is *evaluated*
     at the compile-time shutter-slice times used by
     integrator.motion.render_motion — `at(t)` returns the lerped static

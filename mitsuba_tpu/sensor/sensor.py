@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import transform as tf
-from ..core.math import normalize
+from ..core.math import matmul, normalize
 from ..core.warp import square_to_uniform_disk_concentric
 
 
@@ -92,8 +92,8 @@ class PerspectiveCamera(_HashableByValue):
                 axis=-1)
             d_local = p_focus - o_local
 
-        d_world = normalize(d_local @ r.T)
-        o_world = o_local @ r.T + t
+        d_world = normalize(matmul(d_local, r.T))
+        o_world = matmul(o_local, r.T) + t
         return o_world, d_world
 
     def project(self, p_world):
@@ -108,7 +108,7 @@ class PerspectiveCamera(_HashableByValue):
         tan_half, aspect, r, t = self._precompute()
         rel = p_world - t
         # world → camera local (r is orthonormal: inverse = transpose)
-        local = rel @ r
+        local = matmul(rel, r)
         z = local[..., 2]
         visible = z > self.near_clip
         zs = jnp.maximum(z, 1e-6)
@@ -149,7 +149,7 @@ class OrthographicCamera(_HashableByValue):
         y = 1.0 - (pixel_xy[..., 1] / self.height) * 2.0
         o_local = jnp.stack([x, y, jnp.zeros_like(x)], axis=-1)
         d_local = jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0]), o_local.shape)
-        return o_local @ r.T + t, normalize(d_local @ r.T)
+        return matmul(o_local, r.T) + t, normalize(matmul(d_local, r.T))
 
     @property
     def n_pixels(self):
@@ -196,7 +196,7 @@ class IrradianceMeter(_HashableByValue):
             jnp.zeros((n, 2)) + 0.5
         d_local = square_to_cosine_hemisphere(u)
         o = jnp.broadcast_to(t, (n, 3))
-        return o, normalize(d_local @ r.T)
+        return o, normalize(matmul(d_local, r.T))
 
     @property
     def n_pixels(self):
@@ -219,7 +219,7 @@ class SphericalCamera(_HashableByValue):
         d_local = jnp.stack(
             [st * jnp.sin(phi), jnp.cos(theta), -st * jnp.cos(phi)], axis=-1)
         o = jnp.broadcast_to(t, d_local.shape)
-        return o, normalize(d_local @ r.T)
+        return o, normalize(matmul(d_local, r.T))
 
     @property
     def n_pixels(self):
@@ -254,7 +254,7 @@ class TelecentricCamera(_HashableByValue):
                 [lens[..., 0], lens[..., 1],
                  jnp.zeros_like(lens[..., 0])], axis=-1)
             d_local = focus - o_local
-        return o_local @ r.T + t, normalize(d_local @ r.T)
+        return matmul(o_local, r.T) + t, normalize(matmul(d_local, r.T))
 
     @property
     def n_pixels(self):
@@ -288,7 +288,7 @@ class PerspectiveRDistCamera(_HashableByValue):
         d_local = jnp.stack([dx * factor, dy * factor,
                              jnp.ones_like(dx)], axis=-1)
         o_world = jnp.broadcast_to(t, d_local.shape)
-        return o_world, normalize(d_local @ r.T)
+        return o_world, normalize(matmul(d_local, r.T))
 
     @property
     def n_pixels(self):

@@ -2,7 +2,7 @@
 
 The reference evaluates these per-intersection from mesh data (ref:
 src/textures/wireframe.cpp, vertexcolors.cpp, curvature.cpp, scale.cpp).
-On TPU every texture is a bitmap lookup from the mip-pool (texture.py), so
+Every texture is a bitmap lookup from the mip-pool (texture.py), so
 these compile to bitmaps + a per-corner UV rewrite at scene-build time —
 zero extra runtime cost, and one branchless code path for the wavefront:
 

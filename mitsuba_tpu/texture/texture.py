@@ -8,7 +8,7 @@ meta table holds (offset, width, height). Device lookups are bilinear at an
 explicit LOD (trilinear = two levels + lerp); wrap modes repeat/clamp.
 
 Procedural textures (checkerboard/grid — ref: src/textures/{checkerboard,
-gridtexture}.cpp) are rasterized into bitmaps at compile time: on TPU a
+gridtexture}.cpp) are rasterized into bitmaps at compile time: on an accelerator a
 texel fetch and closed-form evaluation cost the same, and one code path
 keeps the wavefront branchless.
 """
@@ -109,20 +109,6 @@ def eval_texture(scene, tex_id, uv, lod=None):
     return a * (1 - frac)[..., None] + b * frac[..., None]
 
 
-class ProcImage(np.ndarray):
-    """ndarray with procedural provenance in `.proc` — lets the
-    megakernel compile the ANALYTIC form of checkerboard/grid textures
-    (accel/megakernel.py) while the XLA path keeps sampling the
-    rasterized bitmap. SceneDesc.add_texture records `.proc` per slot."""
-    proc: tuple | None = None
-
-
-def _with_proc(img: np.ndarray, proc: tuple) -> np.ndarray:
-    out = img.astype(np.float32).view(ProcImage)
-    out.proc = proc
-    return out
-
-
 def checkerboard(color0=(0.4, 0.4, 0.4), color1=(0.2, 0.2, 0.2), res=512,
                  tiles=8) -> np.ndarray:
     """Rasterized checkerboard (ref: src/textures/checkerboard.cpp)."""
@@ -131,8 +117,7 @@ def checkerboard(color0=(0.4, 0.4, 0.4), color1=(0.2, 0.2, 0.2), res=512,
     img = np.where(cell[..., None] == 0,
                    np.asarray(color0, np.float32),
                    np.asarray(color1, np.float32))
-    return _with_proc(img, ("checker", tuple(np.ravel(color0)),
-                            tuple(np.ravel(color1)), res, tiles))
+    return img.astype(np.float32)
 
 
 def grid_texture(color0=(0.2, 0.2, 0.2), color1=(0.4, 0.4, 0.4),
@@ -144,9 +129,7 @@ def grid_texture(color0=(0.2, 0.2, 0.2), color1=(0.4, 0.4, 0.4),
     on = on_x[None, :] | on_x[:, None]
     img = np.where(on[..., None], np.asarray(color0, np.float32),
                    np.asarray(color1, np.float32))
-    return _with_proc(img, ("grid", tuple(np.ravel(color0)),
-                            tuple(np.ravel(color1)), res, tiles,
-                            float(line_width)))
+    return img.astype(np.float32)
 
 
 def eval_texture_aniso(scene, tex_id, uv, duv0, duv1, max_aniso=8.0,
@@ -156,7 +139,7 @@ def eval_texture_aniso(scene, tex_id, uv, duv0, duv1, max_aniso=8.0,
 
     duv0/duv1: the footprint's uv derivatives (∂uv/∂x, ∂uv/∂y), [..., 2].
 
-    TPU-native approximation: instead of iterating the texels inside the
+    Wavefront approximation: instead of iterating the texels inside the
     ellipse (a data-dependent loop), the ellipse is integrated with a
     FIXED number of Gaussian-weighted trilinear probes along its major
     axis (footprint assembly, McCormack et al. "Feline", 1999 — the same

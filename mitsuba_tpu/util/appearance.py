@@ -13,7 +13,7 @@ Counterparts of the fork's research components:
     into per-mip (mean normal, roughness) LEAN/LEADR moments
     (ref: src/utils/{normalMipmap,ndfMipmap,leadr*}.cpp)
 
-TPU shape: all of these are embarrassingly parallel reductions — one
+Wavefront shape: all of these are embarrassingly parallel reductions — one
 wavefront of samples, scatter-add bins / moment sums. The reference's
 Scheduler work-unit plumbing is unnecessary; `jit` + sharded inputs
 cover the distributed use (parallel/dist.py).

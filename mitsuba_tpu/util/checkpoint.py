@@ -4,7 +4,7 @@ The reference has no render-state checkpointing (SURVEY §5 — only partial
 image flushes); here the counter-based sampler makes resume trivial: the
 full render state is (scene params, accumulated film, samples done, seed),
 all pytrees. Saved with orbax (or a numpy fallback) so long optimizations
-and progressive renders survive restarts — the TPU-native answer to the
+and progressive renders survive restarts — the wavefront answer to the
 reference's `-r` partial flush + `serialize()` machinery.
 """
 from __future__ import annotations

@@ -205,19 +205,6 @@ def test_import_dae_x_up(tmp_path):
     assert np.allclose(cam[:3, 2], [0, 0, -1], atol=1e-5)
 
 
-def test_mega_sublanes_validation():
-    import pytest
-
-    from mitsuba_tpu.integrator.mega import MegaPathTracer
-    from mitsuba_tpu.scene.builder import compile_scene
-    from mitsuba_tpu.scene.presets import cornell_box
-    scene = compile_scene(cornell_box())
-    with pytest.raises(ValueError, match="pblock"):
-        MegaPathTracer.for_scene(scene, pblock=16384, sublanes=24)
-    with pytest.raises(ValueError, match="sublanes"):
-        MegaPathTracer.for_scene(scene, sublanes=12)
-
-
 def test_import_obj(tmp_path):
     obj = os.path.join(str(tmp_path), "m.obj")
     mtl = os.path.join(str(tmp_path), "m.mtl")

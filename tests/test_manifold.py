@@ -84,7 +84,7 @@ def test_refraction_snell():
 
 
 def test_vmapped_chains_converge():
-    """The walk vmaps over a wavefront of chains (the TPU execution
+    """The walk vmaps over a wavefront of chains (the wavefront execution
     shape used by a manifold mutation stage)."""
     ta, te1, te2 = _plane_tri(0.0)
     n = 64

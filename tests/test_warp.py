@@ -1,4 +1,4 @@
-"""Chi-square GOF tests for the warp library — the TPU analog of the
+"""Chi-square GOF tests for the warp library — the wavefront analog of the
 reference's test_chisquare.cpp over warp.h warps."""
 import jax.numpy as jnp
 import numpy as np
